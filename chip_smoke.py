@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's exact search path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's search paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--works 10000] [--seed 0]
 
@@ -9,20 +9,28 @@ and time:
 1. device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them.
 2. build: compiles fandom_search_tpu_torch/csrc/*.cu with nvcc.
-3. kernels: K1-K4 against their plain PyTorch versions on the card, at
-   the shapes of the main path, on inputs from the end-to-end world;
-   exact equality is required (tolerance 0: every output is an integer
-   or one f32 division of integers).  Prints warm times of both.
-4. end to end: SearchEngine.search_works over the world — a 2,000-line
-   script (~20k shingles) against 10,000 works of 2,000 words with 3
-   planted quotes each (~20M query shingles, ~20 batches of 2^20).
-   Every kernel's launch counter must grow; rows on a 50-work sample
-   must equal the NumPy oracle's; every planted quote must be found.
+3. kernels: K1-K6 against their plain PyTorch versions on the card, at
+   the shapes of the paths, on inputs from the end-to-end world; exact
+   equality is required (tolerance 0: every output is an integer or one
+   f32 division of integers).  Prints warm times of both, the least
+   time the card could take (bound) and, where one PyTorch call
+   computes the same function, that call's time.
+4. exact end to end: SearchEngine.search_works over the world — a
+   2,000-line script (~20k shingles) against 10,000 works of 2,000 words
+   with 3 planted quotes each (~20M query shingles, ~20 batches of
+   2^20).  K1-K4 must launch, K5 and K6 must not; rows on a 50-work
+   sample must equal the NumPy oracle's; every planted quote must be
+   found.
+5. LSH end to end: a second engine with the LSH prefilter attached
+   (LSHConfig() defaults, sw_variant "fast") over the same world.  K1,
+   K3, K5 and K6 must launch, K2 and K4 must not; every planted quote
+   must be found; the rows must agree with the exact path's on at least
+   95% of them.
 
 It prints the kernel table as one JSON line, then, as its last line,
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
 Imports nothing of JAX and nothing of fandom_search_tpu itself: only the
-port, which takes its jax-free config module.
+port.
 """
 
 from __future__ import annotations
@@ -44,9 +52,27 @@ KERNELS = (
      "fandom_search_tpu/ops/distance_topk.py:104"),
     ("K3 scan", "scan", "scan1d_i32", "csrc/scan.cu",
      "fandom_search_tpu/ops/scan.py:61"),
-    ("K4 smith_waterman", "smith_waterman", "sw_normalized",
+    ("K4 smith_waterman", "smith_waterman", "sw_wide",
      "csrc/smith_waterman.cu", "fandom_search_tpu/ops/smith_waterman.py:452"),
+    ("K5 smith_waterman_lane", "smith_waterman", "sw_lane",
+     "csrc/smith_waterman_lane.cu", "fandom_search_tpu/ops/smith_waterman.py:233"),
+    ("K6 hamming_topk", "lsh", "hamming_topk", "csrc/hamming_topk.cu",
+     "fandom_search_tpu/ops/lsh.py:121"),
 )
+# which kernels each path must launch; the others must stay at 0
+PATHS = {
+    "exact": ("embed_shingles", "topk_dot", "scan1d_i32", "sw_wide"),
+    "lsh": ("embed_shingles", "scan1d_i32", "sw_lane", "hamming_topk"),
+}
+# NVIDIA H100 SXM peaks (data sheet, dense): HBM bytes/s, int8 tensor-core
+# operations/s, and the CUDA cores' f32 rate, taken for their integer and
+# f32 work alike
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1.979e15
+CUDA_CORE_OPS_S = 67e12
+# f32 operations per Smith-Waterman cell: two adds, four max, the
+# compare-select of the substitution score
+SW_OPS_PER_CELL = 8
 
 
 def phase(name):
@@ -77,6 +103,40 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float, ops_rate: float):
+    """The least time for the work: the larger of its bytes over the
+    memory rate and its operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / ops_rate * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def wrapper(fn_name):
+    import importlib
+
+    for _, mod, fn, _, _ in KERNELS:
+        if fn == fn_name:
+            return getattr(importlib.import_module(f"{PKG}.ops.{mod}"), fn)
+    raise KeyError(fn_name)
+
+
+def counted(path, run):
+    """Run ``run()`` with every launch counter at 0; check that exactly
+    the kernels of ``path`` launched; return (result, launches)."""
+    wrappers = {fn: wrapper(fn) for _, _, fn, _, _ in KERNELS}
+    for w in wrappers.values():
+        w.launches = 0
+    out = run()
+    launches = {fn: w.launches for fn, w in wrappers.items()}
+    for fn, n in launches.items():
+        if fn in PATHS[path]:
+            check(n > 0, f"the {path} path never launched {fn}")
+        else:
+            check(n == 0, f"the {path} path launched {fn} {n} times")
+    return out, launches
 
 
 def make_world(seed: int, num_works: int):
@@ -117,6 +177,33 @@ def first_batch_stream(engine, works):
     return torch.from_numpy(ext[:t_pad].view(np.int32).copy()).to(engine.device)
 
 
+def no_host_sync(engine, works, path):
+    """One warm fused step of the first batch under
+    ``torch.cuda.set_sync_debug_mode("error")``: an op inside the step
+    that waits for the device (a copy from pageable memory, .item(),
+    nonzero, boolean-mask indexing) raises, and the check fails."""
+    import torch
+
+    from fandom_search_tpu_torch.data.fast_tokenizer import tokenize_many
+
+    t0 = phase(f"{path} no host sync")
+    items = sorted(tokenize_many(dict(sorted(works.items())[:1000])).items())
+    ext, nspans, _, _ = next(iter(engine._batches(items)))
+    ext_dev = engine._upload(ext)
+    budgets = (engine._cand_budget, engine._verify_budget)
+    engine._fused_call(ext_dev, nspans, *budgets)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine._fused_call(ext_dev, nspans, *budgets)
+    except RuntimeError as e:
+        check(False, f"the {path} fused step waits for the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    done(f"{path} no host sync", t0, "one fused step ran with sync debug mode 'error'")
+
+
 def kernel_checks(engine, works, seed: int):
     """Phase 3: every kernel against its plain version at path shapes."""
     import numpy as np
@@ -128,7 +215,7 @@ def kernel_checks(engine, works, seed: int):
     from fandom_search_tpu_torch.ops.embed import embed_shingles, embed_shingles_plain
     from fandom_search_tpu_torch.ops.scan import scan1d_i32, scan1d_i32_plain
     from fandom_search_tpu_torch.ops.smith_waterman import (
-        sw_normalized, sw_normalized_plain,
+        sw_lane, sw_normalized_plain, sw_wide,
     )
 
     dev = engine.device
@@ -151,12 +238,19 @@ def kernel_checks(engine, works, seed: int):
     sync()
     err = int((got.int() - want.int()).abs().max())
     check(torch.equal(got, want), f"K1 differs from plain: max |err| {err}")
-    res["embed"] = dict(
+    n = dix.mults.shape[0]
+    res["embed_shingles"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: embed_shingles(tok, dix.mults), 20),
         plain_ms=cuda_ms(lambda: embed_shingles_plain(tok, dix.mults), 3),
+        library_ms=None,
+        shape=f"T={tok.shape[0]}",
+        # tokens and multipliers in, int8 rows out; a multiply and an add
+        # per (row, lane, position)
+        **bound(tok.numel() * 4 + dix.mults.numel() * 4 + got.numel(),
+                2 * got.numel() * n, CUDA_CORE_OPS_S),
     )
-    done("K1 embed", t0, f"T={tok.shape[0]} M={got.shape[0]} {res['embed']}")
+    done("K1 embed", t0, f"T={tok.shape[0]} M={got.shape[0]} {res['embed_shingles']}")
 
     # K2 engine mode on the same 2^20 queries against the whole script
     t0 = phase("K2 distance_topk")
@@ -196,13 +290,17 @@ def kernel_checks(engine, works, seed: int):
     sync()
     check(torch.equal(ev, xv) and torch.equal(ei, xi), "K2 exact mode at k=32 differs")
     err = max(err, float((ev - xv).abs().max()))
-    res["distance_topk"] = dict(
+    res["topk_dot"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: topk_dot(q, s, ns, k, min_keep=thr), 3),
         plain_ms=cuda_ms(lambda: topk_dot_plain(q, s, ns, k, keep_i), 1),
+        library_ms=None,
+        shape=f"NQ={q.shape[0]} NS={ns} k={k} min_keep={thr}",
+        **bound(q.numel() + s.numel() + q.shape[0] * k * 8,
+                2 * q.shape[0] * ns * q.shape[1], INT8_OPS_S),
     )
     done("K2 distance_topk", t0,
-         f"NQ={q.shape[0]} NS={ns} k={k} above_thr={n_above} {res['distance_topk']}")
+         f"NQ={q.shape[0]} NS={ns} k={k} above_thr={n_above} {res['topk_dot']}")
 
     # K3, both ops, at 2^20 and 2^20 + 37
     t0 = phase("K3 scan")
@@ -218,12 +316,15 @@ def kernel_checks(engine, works, seed: int):
             check(torch.equal(g, w), f"K3 {op} at n={n} differs: max |err| {e}")
             err = max(err, e)
     mask = (torch.from_numpy(rng.random(1 << 20) < 0.01).to(dev)).int()
-    res["scan"] = dict(
+    res["scan1d_i32"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: scan1d_i32(mask), 50),
         plain_ms=cuda_ms(lambda: scan1d_i32_plain(mask), 50),
+        library_ms=cuda_ms(lambda: torch.cumsum(mask, 0, dtype=torch.int32), 50),
+        shape=f"N={mask.numel()} add",
+        **bound(mask.numel() * 8, mask.numel(), CUDA_CORE_OPS_S),
     )
-    done("K3 scan", t0, str(res["scan"]))
+    done("K3 scan", t0, str(res["scan1d_i32"]))
 
     # K4 on 8192 length-sorted 64 x 64 pairs with len-0 and ragged rows
     t0 = phase("K4 smith_waterman")
@@ -242,43 +343,157 @@ def kernel_checks(engine, works, seed: int):
     to_dev = lambda x: torch.from_numpy(np.ascontiguousarray(x[order]).view(np.int32)).to(dev)  # noqa: E731
     A, B, LA_, LB_ = to_dev(a), to_dev(b), to_dev(len_a), to_dev(len_b)
     xc = cfg.search
-    g = sw_normalized(A, B, LA_, LB_, xc)
+    g = sw_wide(A, B, LA_, LB_, xc)
     sync()
     w = sw_normalized_plain(A, B, LA_, LB_, xc.sw_match, xc.sw_mismatch, xc.sw_gap)
     sync()
     err = float((g - w).abs().max())
     check(torch.equal(g, w), f"K4 differs from plain: max |err| {err}")
-    res["smith_waterman"] = dict(
+    plain_ms = cuda_ms(lambda: sw_normalized_plain(
+        A, B, LA_, LB_, xc.sw_match, xc.sw_mismatch, xc.sw_gap), 3)
+    # the cells these pairs need, and a and b read once
+    cells = int((np.minimum(len_a, la).astype(np.int64) * np.minimum(len_b, lb)).sum())
+    sw_bound = bound(A.numel() * 4 + B.numel() * 4 + bsz * 12,
+                     SW_OPS_PER_CELL * cells, CUDA_CORE_OPS_S)
+    shape = f"B={bsz} {la}x{lb} length-sorted, {cells} cells"
+    res["sw_wide"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: sw_normalized(A, B, LA_, LB_, xc), 20),
-        plain_ms=cuda_ms(lambda: sw_normalized_plain(
-            A, B, LA_, LB_, xc.sw_match, xc.sw_mismatch, xc.sw_gap), 3),
+        ms=cuda_ms(lambda: sw_wide(A, B, LA_, LB_, xc), 20),
+        plain_ms=plain_ms, library_ms=None, shape=shape, **sw_bound,
     )
-    done("K4 smith_waterman", t0, str(res["smith_waterman"]))
+    done("K4 smith_waterman", t0, str(res["sw_wide"]))
+
+    # K5 on the same pairs: equal to the plain version and to K4
+    t0 = phase("K5 smith_waterman_lane")
+    g5 = sw_lane(A, B, LA_, LB_, xc)
+    sync()
+    err = float((g5 - w).abs().max())
+    check(torch.equal(g5, w), f"K5 differs from plain: max |err| {err}")
+    check(torch.equal(g5, g), "K5 differs from K4")
+    res["sw_lane"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: sw_lane(A, B, LA_, LB_, xc), 20),
+        plain_ms=plain_ms, library_ms=None, shape=shape, **sw_bound,
+    )
+    # the two designs side by side, in turns
+    res["sw_lane"]["k4_ms_beside"] = cuda_ms(lambda: sw_wide(A, B, LA_, LB_, xc), 20)
+    # other operand widths the wrappers take: narrower, and a wider than b
+    for wa, wb in ((23, 11), (100, 64), (1, 1)):
+        a2, b2 = A[:, :wa].contiguous(), B[:, :wb].contiguous()
+        if wa > la:
+            a2 = torch.cat([A, A[:, : wa - la]], dim=1).contiguous()
+        la2, lb2 = LA_.clamp(max=wa), LB_.clamp(max=wb)
+        w2 = sw_normalized_plain(a2, b2, la2, lb2, xc.sw_match, xc.sw_mismatch, xc.sw_gap)
+        check(torch.equal(sw_lane(a2, b2, la2, lb2, xc), w2)
+              and torch.equal(sw_wide(a2, b2, la2, lb2, xc), w2),
+              f"K5 or K4 differs from plain at {wa}x{wb}")
+    done("K5 smith_waterman_lane", t0, str(res["sw_lane"]))
+
+    res["hamming_topk"] = hamming_check(engine, got)
     return res
 
 
-def end_to_end(engine, works, planted, index, cfg, sample: int = 50):
-    """Phase 4: the main path, counted; parity on a sample; recall."""
-    import importlib
-
+def hamming_check(engine, q_emb):
+    """K6 on the codes of the first batch against the script's codes, at
+    the default LSHConfig (1024 bits, rerank 256)."""
     import torch
 
-    from fandom_search_tpu_torch.search.oracle import search_works_oracle
+    from fandom_search_tpu_torch import LSHConfig
+    from fandom_search_tpu_torch.ops.lsh import (
+        SENT, LSHIndex, coarse_sim_threshold, encode, hamming_topk,
+        hamming_topk_plain, rerank_exact,
+    )
 
-    wrappers = {
-        mod: getattr(importlib.import_module(f"{PKG}.ops.{mod}"), fn)
-        for _, mod, fn, _, _ in KERNELS
-    }
-    t0 = phase("e2e")
-    for w in wrappers.values():
-        w.launches = 0
+    t0 = phase("K6 hamming_topk")
+    cfg = engine.cfg
+    lcfg = LSHConfig()
+    lsh = LSHIndex.build(engine.index.embeddings, lcfg, cfg.shingle,
+                         pad_multiple=cfg.search.script_pad_multiple,
+                         device=engine.device)
+    q_codes = encode(q_emb, lsh.projection)
+    keep = coarse_sim_threshold(cfg.search.candidate_threshold, cfg.shingle.n,
+                                lcfg.bits)
+    ns, r, bits = lsh.ns_valid, lcfg.rerank, lcfg.bits
+    rows = 1 << 14
+    qs = q_codes[:rows].contiguous()
+    err = 0.0
+    for mode, mks in (("exact", SENT), ("gated", keep)):
+        kv, ki = hamming_topk(qs, lsh.codes_t, ns, r, bits, min_keep_sim=mks)
+        torch.cuda.synchronize()
+        pv, pi = hamming_topk_plain(qs, lsh.codes_t, ns, r, bits, mks)
+        torch.cuda.synchronize()
+        filled = int((pv > -1e38).sum())
+        check(torch.equal(kv, pv) and torch.equal(ki, pi),
+              f"K6 {mode} mode differs from plain on {rows} rows")
+        check(filled > 0, f"K6 {mode} mode: no entry to compare")
+        err = max(err, float((kv - pv).abs().max()))
+        print(f"[K6 hamming_topk] {mode} (min_keep_sim {mks}): {rows} rows "
+              f"equal in every slot, {filled} filled", flush=True)
+    # the range the wrapper takes: bits 32..2048, R 1..1024, a ragged
+    # ns_valid, none valid and fewer valid than R; codes with many ties
+    gen = torch.Generator(device=engine.device).manual_seed(7)
+    for bits2, r2, ns2 in ((32, 1, 2900), (256, 100, 2900), (2048, 1024, 2900),
+                           (2048, 1024, 500), (1024, 256, 0)):
+        words = bits2 // 32
+        st = torch.randint(-(1 << 31), 1 << 31, (words, 3000), generator=gen,
+                           dtype=torch.int64, device=engine.device).int()
+        st[:, 1000:1100] = st[:, 200:300]
+        q2 = torch.randint(-(1 << 31), 1 << 31, (1000, words), generator=gen,
+                           dtype=torch.int64, device=engine.device).int()
+        q2[:50] = st[:, 200:250].T
+        for mks in (SENT, bits2 // 4):
+            kv, ki = hamming_topk(q2, st, ns2, r2, bits2, min_keep_sim=mks)
+            pv, pi = hamming_topk_plain(q2, st, ns2, r2, bits2, mks)
+            check(torch.equal(kv, pv) and torch.equal(ki, pi),
+                  f"K6 differs from plain at bits {bits2} R {r2} ns {ns2} "
+                  f"min_keep_sim {mks}")
+    print("[K6 hamming_topk] bits 32-2048, R 1-1024, ns_valid 0/500/2900: "
+          "equal in every slot", flush=True)
+    nq = q_codes.shape[0]
+    out = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: hamming_topk(q_codes, lsh.codes_t, ns, r, bits,
+                                        min_keep_sim=keep), 3),
+        plain_ms=cuda_ms(lambda: hamming_topk_plain(qs, lsh.codes_t, ns, r,
+                                                    bits, keep), 1),
+        library_ms=None,
+        shape=f"kernel NQ={nq}, plain NQ={rows}; NS={ns} bits={bits} R={r} "
+              f"min_keep_sim={keep}",
+        # the sign vectors' int8 product on the tensor cores
+        **bound(q_codes.numel() * 4 + lsh.codes_t.numel() * 4 + nq * r * 8,
+                2 * nq * ns * bits, INT8_OPS_S),
+    )
+    # the LSH candidate stage's other parts on the same batch (PyTorch
+    # ops, no kernel of their own), so its time can be attributed
+    kv, ki = hamming_topk(q_codes, lsh.codes_t, ns, r, bits, min_keep_sim=keep)
+    s_f = engine._dix.s_emb.float()
+    print(json.dumps({"lsh_stage_ms_per_batch": {
+        "rows": nq,
+        "encode": cuda_ms(lambda: encode(q_emb, lsh.projection), 3),
+        "hamming_topk": out["ms"],
+        "rerank_exact": cuda_ms(lambda: rerank_exact(
+            q_emb, s_f, ki, kv > -1e38, cfg.search.k, cfg.shingle.dim), 3),
+    }}), flush=True)
+    done("K6 hamming_topk", t0, str(out))
+    return out
+
+
+def search(engine, works):
+    import torch
+
+    t0 = time.perf_counter()
     rows, stats = engine.search_works(works)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {mod: w.launches for mod, w in wrappers.items()}
-    for mod, n in launches.items():
-        check(n > 0, f"the main path never launched the {mod} kernel")
+    return rows, stats, time.perf_counter() - t0
+
+
+def end_to_end(engine, works, planted, index, cfg, sample: int = 50):
+    """Phase 4: the exact path, counted; parity on a sample; recall."""
+    from fandom_search_tpu_torch.search.oracle import search_works_oracle
+
+    t0 = phase("e2e")
+    (rows, stats, seconds), launches = counted(
+        "exact", lambda: search(engine, works))
     print(json.dumps({
         "e2e_seconds": seconds, "works": len(works),
         "query_shingles": stats.num_query_shingles,
@@ -306,6 +521,50 @@ def end_to_end(engine, works, planted, index, cfg, sample: int = 50):
     done("e2e", t0, f"search {seconds:.3f}s; parity {parity} on {len(ids)} works "
                     f"({len(orows)} oracle rows, {time.perf_counter() - t1:.1f}s); "
                     f"{len(planted)} planted quotes found")
+    return rows, launches
+
+
+def lsh_end_to_end(index, cfg, works, planted, exact_rows, device="cuda"):
+    """Phase 5: the LSH path (K6's candidate stage, K5 verifying), counted;
+    recall; row agreement with the exact path."""
+    import dataclasses
+
+    from fandom_search_tpu_torch import LSHConfig
+    from fandom_search_tpu_torch.ops.lsh import attach_lsh_prefilter
+    from fandom_search_tpu_torch.search.engine import SearchEngine
+
+    t0 = phase("lsh e2e")
+    lcfg = dataclasses.replace(
+        cfg, search=dataclasses.replace(cfg.search, sw_variant="fast"))
+    engine = SearchEngine(index, lcfg, device=device)
+    attach_lsh_prefilter(engine, LSHConfig())
+    (rows, stats, seconds), launches = counted(
+        "lsh", lambda: search(engine, works))
+    found = {(r.work_id, r.line_no) for r in rows}
+    missed = [p for p in planted if (p.work_id, p.line_no) not in found]
+    key = lambda r: (r.work_id, r.fan_token_start, r.fan_token_end, r.line_no)  # noqa: E731
+    a = {key(r) for r in exact_rows}
+    b = {key(r) for r in rows}
+    agreement = len(a & b) / len(a) if a else 1.0
+    print(json.dumps({
+        "lsh_e2e_seconds": seconds, "works": len(works),
+        "query_shingles": stats.num_query_shingles,
+        "script_shingles": index.num_shingles, "batches": stats.num_batches,
+        "rows": len(rows), "exact_rows": len(a), "rows_in_both": len(a & b),
+        "row_agreement": agreement, "candidates": stats.num_candidates,
+        "verified": stats.num_verified,
+        "stage_seconds": dict(stats.extra,
+                              device_topk=stats.seconds_device_topk,
+                              host=stats.seconds_host),
+        "launches": launches,
+    }), flush=True)
+    no_host_sync(engine, works, "lsh")
+    check(not missed, f"LSH path: {len(missed)} of {len(planted)} planted quotes "
+                      f"missed, e.g. {missed[:3]}")
+    check(agreement >= 0.95, f"LSH row agreement {agreement} < 0.95")
+    done("lsh e2e", t0, f"search {seconds:.3f}s over {len(works)} works; "
+                        f"{len(planted)} planted quotes found; row agreement "
+                        f"{agreement} ({len(a & b)} of {len(a)} exact rows)")
     return launches
 
 
@@ -348,13 +607,17 @@ def main(argv=None) -> int:
                       f"shingles, {len(works)} works, {len(planted)} planted")
 
     res = kernel_checks(engine, works, args.seed)
-    launches = end_to_end(engine, works, planted, index, cfg)
+    exact_rows, exact_launches = end_to_end(engine, works, planted, index, cfg)
+    no_host_sync(engine, works, "exact")
+    lsh_launches = lsh_end_to_end(index, cfg, works, planted, exact_rows)
 
-    table = [
-        dict(name=name, route="cuda", source=f"{PKG}/{src}", replaces=rep,
-             launches=launches[mod], **res[mod])
-        for name, mod, _, src, rep in KERNELS
-    ]
+    table = []
+    for name, _, fn, src, rep in KERNELS:
+        by_path = {"exact": exact_launches[fn], "lsh": lsh_launches[fn]}
+        path = "exact" if fn in PATHS["exact"] else "lsh"
+        table.append(dict(name=name, route="cuda", source=f"{PKG}/{src}",
+                          replaces=rep, launches=by_path[path],
+                          launches_by_path=by_path, **res[fn]))
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,13 +1,15 @@
 """fandom_search_tpu_torch — the PyTorch/CUDA port of fandom_search_tpu.
 
 The exact search path (embed -> int8 distance top-k -> compaction ->
-Smith-Waterman verify -> chaining) runs on an NVIDIA GPU through four
-hand-written CUDA kernels (``csrc/``), each with a plain PyTorch twin
-that the CPU tests hold against the JAX package.  Configs are imported
-from ``fandom_search_tpu.config``, which is free of JAX.
+Smith-Waterman verify -> chaining) and the LSH prefilter path run on an
+NVIDIA GPU through hand-written CUDA kernels (``csrc/``), each with a
+plain PyTorch twin that the CPU tests hold against the JAX package.
+The package imports nothing of ``fandom_search_tpu``: it keeps its own
+copies of the config and of the works-directory loader.
 """
 
-from fandom_search_tpu.config import (  # noqa: F401
+from fandom_search_tpu_torch.config import (  # noqa: F401
+    LSHConfig,
     PipelineConfig,
     SearchConfig,
     ShingleConfig,

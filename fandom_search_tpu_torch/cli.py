@@ -2,11 +2,16 @@
 
     python -m fandom_search_tpu_torch search WORKS_DIR SCRIPT [SCRIPT ...] \\
         -o matches.csv [--k K] [--candidate-threshold T] \\
-        [--verify-threshold V] [--device cuda|cpu]
+        [--verify-threshold V] [--sw-variant VARIANT] [--lsh] \\
+        [--device cuda|cpu]
 
-``--device`` defaults to ``cuda`` and fails when CUDA is missing;
-``--device cpu`` is the explicit way to run the kernels' plain PyTorch
-versions.  Prints one JSON manifest line, like the JAX package's CLI.
+``--lsh`` swaps the exact candidate stage for the LSH prefilter (K6
+Hamming top-R, then an exact rerank) inside the engine's device step;
+``--sw-variant`` picks the Smith-Waterman kernel: fast, r2 and dyn run
+K5, wide, exitw and slide run K4 (the same scores).  ``--device``
+defaults to ``cuda`` and fails when CUDA is missing; ``--device cpu`` is
+the explicit way to run the kernels' plain PyTorch versions.  Prints one
+JSON manifest line, like the JAX package's CLI.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from pathlib import Path
 
 
 def _pipeline_config(args):
-    from fandom_search_tpu.config import PipelineConfig, SearchConfig
+    from fandom_search_tpu_torch.config import PipelineConfig, SearchConfig
 
     over = {}
     if args.k is not None:
@@ -30,6 +35,8 @@ def _pipeline_config(args):
         over["candidate_threshold"] = args.candidate_threshold
     if args.verify_threshold is not None:
         over["verify_threshold"] = args.verify_threshold
+    if args.sw_variant is not None:
+        over["sw_variant"] = args.sw_variant
     return PipelineConfig(search=dataclasses.replace(SearchConfig(), **over))
 
 
@@ -57,7 +64,7 @@ def _build_index_from_scripts(paths, cfg):
 
 
 def cmd_search(args) -> int:
-    from fandom_search_tpu.scrape.clean import load_works_dir
+    from fandom_search_tpu_torch.scrape.clean import load_works_dir
     from fandom_search_tpu_torch.search.engine import SearchEngine, resolve_device
     from fandom_search_tpu_torch.search.report import write_matches_csv
 
@@ -74,6 +81,10 @@ def cmd_search(args) -> int:
 
     t0 = time.perf_counter()
     eng = SearchEngine(index, cfg, device=device)
+    if args.lsh:
+        from fandom_search_tpu_torch.ops.lsh import attach_lsh_prefilter
+
+        attach_lsh_prefilter(eng, cfg.lsh)
     rows, stats = eng.search_works(works)
     t_search = time.perf_counter() - t0
 
@@ -116,6 +127,14 @@ def build_parser() -> argparse.ArgumentParser:
     qp.add_argument("--verify-threshold", type=float, default=None,
                     help="min normalized alignment score to keep a hit "
                          "(default 0.35)")
+    qp.add_argument("--sw-variant", default=None, dest="sw_variant",
+                    choices=("fast", "r2", "dyn", "wide", "exitw", "slide"),
+                    help="Smith-Waterman variant (default wide): fast, r2 "
+                         "and dyn run the warp-per-pair kernel K5, wide, "
+                         "exitw and slide the thread-per-pair kernel K4; "
+                         "all give the same scores")
+    qp.add_argument("--lsh", action="store_true",
+                    help="use the LSH prefilter for candidate generation")
     qp.add_argument("--device", default="cuda",
                     help="cuda (default; fails without CUDA) or cpu (the "
                          "kernels' plain PyTorch versions)")

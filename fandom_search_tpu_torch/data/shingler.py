@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from fandom_search_tpu.config import ShingleConfig
+from fandom_search_tpu_torch.config import ShingleConfig
 from fandom_search_tpu_torch.data.hashing import derive_sign_mults
 
 

@@ -33,16 +33,35 @@ def min_keep_int(min_keep: float, dim: int) -> int:
     return int(min(max(int(np.ceil(min_keep * dim)), _KEEP_FLOOR), 1 << 30))
 
 
+def topk_lowest_col(score: torch.Tensor, keep: torch.Tensor, k: int):
+    """Per row, the top k of int64 ``score`` [R, N] among entries where
+    ``keep``, ties to the lowest column: (score int64 [R, k], column
+    int64 [R, k], empty bool [R, k]), best first; an empty slot holds
+    no entry (fewer than k kept).
+
+    Packs (score, column) into one unique int64 key, score * N +
+    (N - 1 - col), so the top-k of the keys is the top-k of the scores
+    with the lowest column first on ties — torch.topk alone does not
+    break ties that way.  Needs |score| * N far below 2^62.
+    """
+    n = score.shape[1]
+    rank = n - 1 - torch.arange(n, device=score.device, dtype=torch.int64)
+    key = torch.where(keep, score * n + rank, _KEY_EMPTY)
+    if k > n:
+        key = torch.nn.functional.pad(key, (0, k - n), value=_KEY_EMPTY)
+    top = torch.topk(key, k, dim=1).values
+    empty = top == _KEY_EMPTY
+    sc = torch.div(top, n, rounding_mode="floor")
+    return sc, n - 1 - (top - sc * n), empty
+
+
 def topk_dot_plain(q: torch.Tensor, s: torch.Tensor, ns_valid: int, k: int,
                    min_keep_i: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin of the K2 kernel.
 
     Dots run as f32 matmuls, which are exact here (int8 @ int8 on the
-    CPU returns int8 and overflows).  Selection packs (score, column)
-    into one unique int64 key, score * ns + (ns - 1 - col), so the top-k
-    of the keys is the top-k of the scores with the lowest column first
-    on ties — torch.topk alone does not break ties that way.  Query rows
-    are chunked so no more than ~64M keys exist at once.
+    CPU returns int8 and overflows); ``topk_lowest_col`` selects.  Query
+    rows are chunked so no more than ~64M keys exist at once.
     """
     nq, dim = q.shape
     dev = q.device
@@ -52,20 +71,12 @@ def topk_dot_plain(q: torch.Tensor, s: torch.Tensor, ns_valid: int, k: int,
     if nq == 0 or ns == 0:
         return vals, idx
     s_t = s[:ns].float().T.contiguous()                       # [dim, ns]
-    rank = (ns - 1 - torch.arange(ns, device=dev)).long()      # col -> tiebreak
     inv_dim = float(np.float32(1.0 / dim))  # the kernel's f32 multiplier
-    width = max(ns, k)
-    chunk = max(1, (1 << 26) // width)
+    chunk = max(1, (1 << 26) // max(ns, k))
     for q0 in range(0, nq, chunk):
         q1 = min(nq, q0 + chunk)
         score = (q[q0:q1].float() @ s_t).long()               # exact ints
-        key = torch.where(score >= min_keep_i, score * ns + rank, _KEY_EMPTY)
-        if width > ns:
-            key = torch.nn.functional.pad(key, (0, width - ns), value=_KEY_EMPTY)
-        top = torch.topk(key, k, dim=1).values
-        empty = top == _KEY_EMPTY
-        sc = torch.div(top, ns, rounding_mode="floor")
-        col = ns - 1 - (top - sc * ns)
+        sc, col, empty = topk_lowest_col(score, score >= min_keep_i, k)
         vals[q0:q1] = torch.where(empty, NEG_INF, sc.float() * inv_dim)
         idx[q0:q1] = torch.where(empty, 0, col).int()
     return vals, idx

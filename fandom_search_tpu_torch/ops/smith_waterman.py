@@ -1,9 +1,14 @@
-"""K4 Smith-Waterman verification; counterpart of fandom_search_tpu/ops/smith_waterman.py.
+"""K4 and K5 Smith-Waterman verification; counterpart of fandom_search_tpu/ops/smith_waterman.py.
 
-``sw_normalized`` launches ``csrc/smith_waterman.cu`` on CUDA tensors
-and runs ``sw_normalized_plain`` on CPU tensors.  Every ``sw_variant``
-of the JAX package computes this one function, so the port has one
-exact kernel for all of them.  Tokens travel as int32 bit patterns.
+``sw_normalized`` routes by ``cfg.sw_variant`` as the JAX package's
+``sw_normalized_pallas`` does: "wide", "exitw" and "slide" (the TPU's
+transposed kernel) go to K4, ``sw_wide`` (``csrc/smith_waterman.cu``,
+one thread per pair); "fast", "r2" and "dyn" (the TPU's lane-major
+kernel) go to K5, ``sw_lane`` (``csrc/smith_waterman_lane.cu``, one warp
+per pair).  Every variant computes one function — both kernels are
+exact, where JAX's "exitw" may lower scores below the threshold — so
+CPU tensors take the one plain version, ``sw_normalized_plain``.
+Tokens travel as int32 bit patterns.
 """
 
 from __future__ import annotations
@@ -12,10 +17,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fandom_search_tpu.config import SearchConfig
+from fandom_search_tpu_torch.config import SearchConfig
 from fandom_search_tpu_torch.ops import _cuda
 
 _KERNEL_MAX_LB = 64
+LANE_VARIANTS = ("fast", "r2", "dyn")
 
 
 def sw_normalized_plain(a: torch.Tensor, b: torch.Tensor, len_a: torch.Tensor,
@@ -58,10 +64,9 @@ def sw_normalized_plain(a: torch.Tensor, b: torch.Tensor, len_a: torch.Tensor,
     return best / denom
 
 
-def sw_normalized(a: torch.Tensor, b: torch.Tensor, len_a: torch.Tensor,
-                  len_b: torch.Tensor, cfg: SearchConfig) -> torch.Tensor:
-    """int32 a [B, LA], b [B, LB], len_a/len_b [B] -> f32 [B]:
-    best local alignment / (match * max(1, min(len_a, len_b)))."""
+def _run(symbol: str, a, b, len_a, len_b, cfg: SearchConfig):
+    """Checks, then the plain version (CPU tensors) or one launch of
+    ``symbol`` (CUDA tensors); returns (scores, whether it launched)."""
     _cuda.require(a.dtype == torch.int32 and a.dim() == 2,
                   f"a must be int32 [B, LA], got {a.dtype} {tuple(a.shape)}")
     bsz = a.shape[0]
@@ -73,7 +78,7 @@ def sw_normalized(a: torch.Tensor, b: torch.Tensor, len_a: torch.Tensor,
     if _cuda.on_cpu(a, b, len_a, len_b):
         return sw_normalized_plain(
             a, b, len_a, len_b, cfg.sw_match, cfg.sw_mismatch, cfg.sw_gap
-        )
+        ), False
     la, lb = a.shape[1], b.shape[1]
     _cuda.require(lb <= _KERNEL_MAX_LB,
                   f"the CUDA kernel takes LB <= {_KERNEL_MAX_LB}, got {lb}")
@@ -81,17 +86,41 @@ def sw_normalized(a: torch.Tensor, b: torch.Tensor, len_a: torch.Tensor,
                   "a, b, len_a and len_b must be contiguous")
     out = torch.empty((bsz,), dtype=torch.float32, device=a.device)
     if bsz == 0:
-        return out
-    lib = _cuda.library()
-    rc = lib.fs_sw(
+        return out, False
+    rc = getattr(_cuda.library(), symbol)(
         a.data_ptr(), b.data_ptr(), len_a.data_ptr(), len_b.data_ptr(),
         out.data_ptr(), bsz, la, lb,
         cfg.sw_match, cfg.sw_mismatch, cfg.sw_gap,
         _cuda.stream_ptr(a.device),
     )
-    _cuda.check(rc, "fs_sw")
-    sw_normalized.launches += 1
+    _cuda.check(rc, symbol)
+    return out, True
+
+
+def sw_wide(a: torch.Tensor, b: torch.Tensor, len_a: torch.Tensor,
+            len_b: torch.Tensor, cfg: SearchConfig) -> torch.Tensor:
+    """K4, one thread per pair (the JAX package's "wide" family)."""
+    out, launched = _run("fs_sw", a, b, len_a, len_b, cfg)
+    sw_wide.launches += launched
     return out
 
 
-sw_normalized.launches = 0
+def sw_lane(a: torch.Tensor, b: torch.Tensor, len_a: torch.Tensor,
+            len_b: torch.Tensor, cfg: SearchConfig) -> torch.Tensor:
+    """K5, one warp per pair (the JAX package's lane-major family)."""
+    out, launched = _run("fs_sw_lane", a, b, len_a, len_b, cfg)
+    sw_lane.launches += launched
+    return out
+
+
+sw_wide.launches = 0
+sw_lane.launches = 0
+
+
+def sw_normalized(a: torch.Tensor, b: torch.Tensor, len_a: torch.Tensor,
+                  len_b: torch.Tensor, cfg: SearchConfig) -> torch.Tensor:
+    """int32 a [B, LA], b [B, LB], len_a/len_b [B] -> f32 [B]:
+    best local alignment / (match * max(1, min(len_a, len_b))), through
+    K5 for ``cfg.sw_variant`` in fast/r2/dyn and K4 otherwise."""
+    fn = sw_lane if cfg.sw_variant in LANE_VARIANTS else sw_wide
+    return fn(a, b, len_a, len_b, cfg)

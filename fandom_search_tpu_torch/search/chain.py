@@ -7,7 +7,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from fandom_search_tpu.config import SearchConfig, ShingleConfig
+from fandom_search_tpu_torch.config import SearchConfig, ShingleConfig
 from fandom_search_tpu_torch.data.tokenizer import Tokenized
 from fandom_search_tpu_torch.search.index import ScriptIndex
 from fandom_search_tpu_torch.search.types import CandidateHit, MatchRow

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from fandom_search_tpu.config import SearchConfig, ShingleConfig
+from fandom_search_tpu_torch.config import SearchConfig, ShingleConfig
 
 
 def verify_window(

@@ -1,18 +1,22 @@
-"""The search engine's fused batch path; counterpart of fandom_search_tpu/search/engine.py.
+"""The search engine; counterpart of fandom_search_tpu/search/engine.py.
 
 ``SearchEngine.search_works`` tokenizes and packs works on the host
 exactly as the JAX engine does, then runs ONE ``fused_step`` per batch
-on ``device``: K1 embed -> K2 distance top-k -> threshold compaction
-(K3 scan) -> dedup sort -> verify windows -> length sort -> K4
-Smith-Waterman -> compaction of the verified hits.  The host pulls one
-f32 [5, verify_budget] array per batch, retries a batch whose fixed
-budgets overflowed, and chains the hits into MatchRows.  Inside a batch
+on ``device``: the candidate stage -> dedup sort -> verify windows ->
+length sort -> Smith-Waterman (K4 or K5) -> compaction of the verified
+hits.  The candidate stage is ``exact_candidates`` (K1 embed -> K2
+distance top-k -> threshold compaction with K3) unless
+``ops.lsh.attach_lsh_prefilter`` swaps in the LSH one (K1 -> K6 ->
+rerank -> the same compaction).  The host pulls one f32
+[5, verify_budget] array per batch, retries a batch whose fixed budgets
+overflowed, and chains the hits into MatchRows.  Inside the device step
 nothing syncs with the host: no nonzero, no boolean-mask indexing, no
 .item().
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import time
 from dataclasses import dataclass, field
@@ -21,7 +25,7 @@ from typing import Dict, Iterable, List, Tuple
 import numpy as np
 import torch
 
-from fandom_search_tpu.config import PipelineConfig, SearchConfig, ShingleConfig
+from fandom_search_tpu_torch.config import PipelineConfig, SearchConfig, ShingleConfig
 from fandom_search_tpu_torch.data.fast_tokenizer import tokenize_many
 from fandom_search_tpu_torch.data.hashing import derive_sign_mults
 from fandom_search_tpu_torch.data.tokenizer import Tokenized
@@ -258,34 +262,42 @@ def compact_candidates(vals, idx, threshold: float, ns: int, k: int,
     )
 
 
+def exact_candidates(stream: torch.Tensor, dix: DeviceIndex, *,
+                     search_cfg: SearchConfig, max_out: int):
+    """K1 embed -> K2 top-k -> threshold compaction: the exact candidate
+    stage, as ``compact_candidates`` returns it."""
+    threshold = search_cfg.candidate_threshold
+    ns = dix.s_emb.shape[0]
+    q_emb = embed_shingles(stream, dix.mults)
+    vals, idx = topk_dot(q_emb, dix.s_emb, ns, search_cfg.k, min_keep=threshold)
+    return compact_candidates(vals, idx, threshold, ns, search_cfg.k, max_out)
+
+
 def fused_step(stream_ext: torch.Tensor, dix: DeviceIndex, *,
                shingle_cfg: ShingleConfig, search_cfg: SearchConfig,
                cand_budget: int, verify_budget: int,
-               nspans: int) -> torch.Tensor:
+               nspans: int, candidates_fn=None) -> torch.Tensor:
     """One batch on the device: candidates -> dedup -> windows -> SW.
 
     ``stream_ext`` is int32 [T_pad + 2*nspans]: the token stream, then
     the span starts, then the span lengths (uint32 bit patterns).
+    ``candidates_fn(stream, max_out=...)`` returns what
+    ``compact_candidates`` returns; it defaults to ``exact_candidates``.
     Returns f32 [5, verify_budget], the layout of the JAX engine's
     ``_fused_impl``: rows 0-3 are (qpos, line, score, verify_score) of
     the verified hits; row 4 holds (candidates, deduped, verified) in
     its first three slots.
     """
     n, dim = shingle_cfg.n, shingle_cfg.dim
-    k = search_cfg.k
     t_pad = stream_ext.shape[0] - 2 * nspans
     stream = stream_ext[:t_pad]
     sp_start = stream_ext[t_pad : t_pad + nspans]
     sp_len = stream_ext[t_pad + nspans :]
-    ns = dix.s_emb.shape[0]
-
-    # ---- candidates: K1 embed -> K2 top-k -> threshold compaction -----
-    threshold = search_cfg.candidate_threshold
-    q_emb = embed_shingles(stream, dix.mults)
-    vals, idx = topk_dot(q_emb, dix.s_emb, ns, k, min_keep=threshold)
-    qpos, sidx, score, cand_count = compact_candidates(
-        vals, idx, threshold, ns, k, cand_budget
-    )
+    if candidates_fn is None:
+        candidates_fn = functools.partial(
+            exact_candidates, dix=dix, search_cfg=search_cfg
+        )
+    qpos, sidx, score, cand_count = candidates_fn(stream, max_out=cand_budget)
     return fused_tail(
         stream, sp_start, sp_len, qpos, sidx, score, cand_count, dix,
         n=n, dim=dim, search_cfg=search_cfg, verify_budget=verify_budget,
@@ -302,6 +314,32 @@ def _stable_sort_perm(keys) -> torch.Tensor:
         order = torch.sort(kk, stable=True).indices
         perm = order if perm is None else perm[order]
     return perm
+
+
+def verify_pairs(stream, script_stream, starts_a, len_a, starts_b, len_b,
+                 search_cfg: SearchConfig) -> torch.Tensor:
+    """Smith-Waterman scores of the windows stream[starts_a : +len_a]
+    against script_stream[starts_b : +len_b], in input order.
+
+    The pairs are length-sorted first, so pairs of similar length sit
+    side by side (K4's threads of a warp stop at similar bounds); the
+    scatter restores the order.  Pairs score independently, so the sort
+    changes no score."""
+    w, mlt = search_cfg.window_tokens, search_cfg.max_line_tokens
+    dev = stream.device
+    perm = torch.sort(-(len_a + len_b), stable=True).indices
+    offs = torch.arange(w, device=dev)[None, :]
+    a = stream[(starts_a[perm].long()[:, None] + offs).clamp(0, stream.shape[0] - 1)]
+    offs_b = torch.arange(mlt, device=dev)[None, :]
+    b = script_stream[
+        (starts_b[perm].long()[:, None] + offs_b).clamp(0, script_stream.shape[0] - 1)
+    ]
+    vscore_p = sw_normalized(
+        a, b, len_a[perm].int(), len_b[perm].int(), search_cfg
+    )
+    vscore = torch.zeros((perm.shape[0],), dtype=torch.float32, device=dev)
+    vscore.scatter_(0, perm, vscore_p)
+    return vscore
 
 
 def _packable(t_pad: int, n_lines: int, width: int) -> bool:
@@ -383,24 +421,8 @@ def fused_tail(stream, sp_start, sp_len, qpos, sidx, score, cand_count,
     starts_b = dix.line_start[line_u].long() + b0
     len_b = (llen - b0).clamp(max=mlt)
 
-    # ---- length-sort the verify batch ---------------------------------
-    # pairs of similar length sit side by side, so the threads of a warp
-    # in K4 stop at similar bounds; the scatter restores the order
-    vb = starts_a.shape[0]
-    perm_v = torch.sort(-(len_a + len_b), stable=True).indices
-    offs = torch.arange(w, device=dev)[None, :]
-    a = stream[(starts_a[perm_v][:, None] + offs).clamp(0, t_pad - 1)]
-    offs_b = torch.arange(mlt, device=dev)[None, :]
-    b = dix.script_stream[
-        (starts_b[perm_v][:, None] + offs_b).clamp(
-            0, dix.script_stream.shape[0] - 1
-        )
-    ]
-    vscore_p = sw_normalized(
-        a, b, len_a[perm_v].int(), len_b[perm_v].int(), search_cfg
-    )
-    vscore = torch.zeros((vb,), dtype=torch.float32, device=dev)
-    vscore.scatter_(0, perm_v, vscore_p)
+    vscore = verify_pairs(stream, dix.script_stream, starts_a, len_a,
+                          starts_b, len_b, search_cfg)
 
     # ---- final compact: only verified hits leave the device -----------
     keep = uvalid & (vscore >= _f32(search_cfg.verify_threshold))
@@ -442,6 +464,11 @@ class SearchEngine:
         # overflows them; the batch is rerun, so nothing is dropped.
         self._cand_budget = xcfg.max_candidates_per_batch
         self._verify_budget = max(2048, xcfg.batch_queries // 64)
+        # The candidate stage of fused_step; a prefilter swaps it
+        # (ops/lsh.py attach_lsh_prefilter).
+        self._candidates_fn = functools.partial(
+            exact_candidates, dix=self._dix, search_cfg=xcfg
+        )
 
     @classmethod
     def from_index(cls, index, cfg: PipelineConfig, *, device="cuda"):
@@ -633,6 +660,15 @@ class SearchEngine:
 
         yield from heapq.merge(pre, tokenized_chunks())
 
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A uint32 or int32 host array on the device as int32.  From
+        pinned memory the copy is asynchronous; from pageable memory it
+        would wait for the previous batch."""
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int32))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
     # -- fused batch path ----------------------------------------------------
 
     def _fused_call(self, ext_dev, nspans, cand_budget, verify_budget):
@@ -640,18 +676,12 @@ class SearchEngine:
             ext_dev, self._dix,
             shingle_cfg=self.cfg.shingle, search_cfg=self.cfg.search,
             cand_budget=cand_budget, verify_budget=verify_budget,
-            nspans=nspans,
+            nspans=nspans, candidates_fn=self._candidates_fn,
         )
 
     def _submit_fused(self, ext, nspans, spans, stats: EngineStats):
         t0 = time.perf_counter()
-        ext_t = torch.from_numpy(ext.view(np.int32))
-        if self.device.type == "cuda":
-            # from pinned memory the upload is asynchronous; from
-            # pageable memory it would wait for the previous batch
-            ext_dev = ext_t.pin_memory().to(self.device, non_blocking=True)
-        else:
-            ext_dev = ext_t
+        ext_dev = self._upload(ext)
         out = self._fused_call(
             ext_dev, nspans, self._cand_budget, self._verify_budget
         )

@@ -7,7 +7,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from fandom_search_tpu.config import SearchConfig, ShingleConfig
+from fandom_search_tpu_torch.config import SearchConfig, ShingleConfig
 from fandom_search_tpu_torch.data.script_parser import ScriptLine
 from fandom_search_tpu_torch.data.tokenizer import Tokenized, tokenize
 from fandom_search_tpu_torch.data.shingler import embed_shingles_np, shingle_hashes

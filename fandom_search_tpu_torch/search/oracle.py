@@ -8,7 +8,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from fandom_search_tpu.config import PipelineConfig
+from fandom_search_tpu_torch.config import PipelineConfig
 from fandom_search_tpu_torch.data.tokenizer import Tokenized, tokenize
 from fandom_search_tpu_torch.data.shingler import embed_shingles_np
 from fandom_search_tpu_torch.search.chain import chain_hits

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from fandom_search_tpu.config import SearchConfig
+from fandom_search_tpu_torch.config import SearchConfig
 
 
 def sw_score_np(

@@ -28,10 +28,14 @@ from fandom_search_tpu.utils.synthetic import (
     make_vocab,
 )
 from fandom_search_tpu_torch import cli
+from fandom_search_tpu_torch.config import PipelineConfig as PortConfig
 from fandom_search_tpu_torch.search import engine as port_engine
 from fandom_search_tpu_torch.search.engine import SearchEngine, fused_step
 
+# the JAX side takes its own config objects, the port's functions the
+# port's; each test builds both from the same plain values
 CFG = PipelineConfig()
+PCFG = PortConfig()
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
 
 
@@ -65,6 +69,11 @@ def _with_search(cfg, **kw):
     return dataclasses.replace(cfg, search=dataclasses.replace(cfg.search, **kw))
 
 
+def _both(**kw):
+    """(JAX config, port config) with the same search overrides."""
+    return _with_search(CFG, **kw), _with_search(PCFG, **kw)
+
+
 @pytest.mark.parametrize(
     "cand_budget,verify_budget,packed",
     [(1 << 14, 2048, True), (8, 2048, True), (1 << 14, 16, True),
@@ -89,10 +98,10 @@ def test_fused_step_matches_jax_fused_jit(world, monkeypatch, cand_budget,
     want = np.asarray(
         jeng._fused_call(jnp.asarray(ext), nspans, cand_budget, verify_budget)
     )
-    peng = SearchEngine.from_index(index, CFG, device="cpu")
+    peng = SearchEngine.from_index(index, PCFG, device="cpu")
     got = fused_step(
         torch.from_numpy(ext.view(np.int32)), peng._dix,
-        shingle_cfg=CFG.shingle, search_cfg=CFG.search,
+        shingle_cfg=PCFG.shingle, search_cfg=PCFG.search,
         cand_budget=cand_budget, verify_budget=verify_budget, nspans=nspans,
     ).numpy()
     assert got.shape == want.shape == (5, verify_budget)
@@ -104,7 +113,7 @@ def test_engine_rows_match_oracle_and_jax_pallas(world):
     """(b) Rows and scores equal the NumPy oracle's and the JAX engine's
     (Pallas kernels in interpret mode)."""
     works, planted, index = world
-    rows, stats = SearchEngine.from_index(index, CFG, device="cpu").search_works(works)
+    rows, stats = SearchEngine.from_index(index, PCFG, device="cpu").search_works(works)
     oracle_rows, _ = search_works_oracle(works, index, CFG)
     jax_rows, jstats = JaxEngine(
         index, CFG, use_pallas=True, interpret=True
@@ -122,9 +131,9 @@ def test_engine_multi_batch_and_budget_overflow(world):
     """(c) batch_queries=512 packs many batches; a candidate budget of 8
     forces the overflow retry; rows stay equal to oracle and JAX."""
     works, _, index = world
-    for cfg, grow in ((_with_search(CFG, batch_queries=512), False),
-                      (_with_search(CFG, max_candidates_per_batch=8), True)):
-        eng = SearchEngine.from_index(index, cfg, device="cpu")
+    for (cfg, pcfg), grow in ((_both(batch_queries=512), False),
+                              (_both(max_candidates_per_batch=8), True)):
+        eng = SearchEngine.from_index(index, pcfg, device="cpu")
         rows, stats = eng.search_works(works)
         jrows, _ = JaxEngine(index, cfg, use_pallas=False).search_works(works)
         oracle_rows, _ = search_works_oracle(works, index, cfg)
@@ -141,13 +150,13 @@ def test_engine_giant_work_split_parity(world):
     straddle every chunk boundary (:211)."""
     _, _, index = world
     cap = 1024
-    small = _with_search(CFG, batch_queries=cap)
+    small, psmall = _both(batch_queries=cap)
     # a script line quoted in the middle of a giant work (:195)
     rng = np.random.default_rng(3)
     vocab = make_vocab(rng, 500)
     body = " ".join(vocab[i] for i in rng.integers(0, len(vocab), 2000))
     works = {"giant": body + " " + index.lines[5].text + " " + body}
-    rows, _ = SearchEngine.from_index(index, small, device="cpu").search_works(works)
+    rows, _ = SearchEngine.from_index(index, psmall, device="cpu").search_works(works)
     oracle_rows, _ = search_works_oracle(works, index, small)
     assert any(r.line_no == 5 for r in rows)
     assert _rows(rows) == _rows(oracle_rows)
@@ -163,7 +172,7 @@ def test_engine_giant_work_split_parity(world):
             q = index.lines[(c + off) % len(index.lines)].text.split()
             words[pos : pos + len(q)] = q
     works = {"giant": " ".join(words)}
-    rows, stats = SearchEngine.from_index(index, small, device="cpu").search_works(works)
+    rows, stats = SearchEngine.from_index(index, psmall, device="cpu").search_works(works)
     oracle_rows, _ = search_works_oracle(works, index, small)
     jrows, _ = JaxEngine(index, small, use_pallas=False).search_works(works)
     assert stats.num_batches > 1
@@ -190,7 +199,7 @@ def test_engine_repeated_words_and_long_line_tail():
         "w1": " ".join(["drum"] * 30),
         "w_tail": f"{filler} {' '.join(long_words[-30:])} {filler}",
     }
-    rows, _ = SearchEngine.from_index(index, CFG, device="cpu").search_works(works)
+    rows, _ = SearchEngine.from_index(index, PCFG, device="cpu").search_works(works)
     oracle_rows, _ = search_works_oracle(works, index, CFG)
     jrows, _ = JaxEngine(index, CFG, use_pallas=True, interpret=True).search_works(works)
     assert _rows(rows) == _rows(oracle_rows) == _rows(jrows)
@@ -201,12 +210,12 @@ def test_engine_repeated_words_and_long_line_tail():
 
 def test_engine_empty_short_and_unsupported(world):
     _, _, index = world
-    eng = SearchEngine.from_index(index, CFG, device="cpu")
+    eng = SearchEngine.from_index(index, PCFG, device="cpu")
     rows, stats = eng.search_works({"empty": "", "short": "two words"})
     assert rows == [] and stats.num_works == 2
     with pytest.raises(NotImplementedError):
         SearchEngine.from_index(
-            index, _with_search(CFG, stream_compress=True), device="cpu"
+            index, _with_search(PCFG, stream_compress=True), device="cpu"
         )
 
 
@@ -215,7 +224,7 @@ def test_engine_refuses_missing_cuda(world, monkeypatch):
     _, _, index = world
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        SearchEngine.from_index(index, CFG, device="cuda")
+        SearchEngine.from_index(index, PCFG, device="cuda")
 
 
 def test_cli_search_cpu_writes_oracle_csv_bytes(tmp_path):

@@ -30,6 +30,7 @@ from fandom_search_tpu.utils.synthetic import (
     make_script,
     make_vocab,
 )
+from fandom_search_tpu_torch.config import PipelineConfig as PortConfig
 from fandom_search_tpu_torch.data import hashing, shingler
 from fandom_search_tpu_torch.data.fast_tokenizer import tokenize_many
 from fandom_search_tpu_torch.data.script_parser import parse_script
@@ -44,6 +45,7 @@ from fandom_search_tpu_torch.search.oracle import search_works_oracle
 from fandom_search_tpu_torch.utils import synthetic
 
 CFG = PipelineConfig()
+PCFG = PortConfig()
 ROOT = Path(__file__).resolve().parent.parent
 INDEX_ARRAYS = (
     "stream_hashes", "token_line", "shingle_line", "shingle_anchor",
@@ -117,13 +119,13 @@ def test_script_parser_matches(world, which):
 
 
 def test_shingler_matches(rng):
-    cfg = CFG.shingle
+    cfg, pcfg = CFG.shingle, PCFG.shingle
     for t in (0, 5, 6, 400):
         toks = rng.integers(0, 2**32, size=t, dtype=np.uint64).astype(np.uint32)
-        assert shingler.num_shingles(t, cfg) == jshingler.num_shingles(t, cfg)
-        assert np.array_equal(shingler.shingle_hashes(toks, cfg),
+        assert shingler.num_shingles(t, pcfg) == jshingler.num_shingles(t, cfg)
+        assert np.array_equal(shingler.shingle_hashes(toks, pcfg),
                               jshingler.shingle_hashes(toks, cfg))
-        assert np.array_equal(shingler.embed_shingles_np(toks, cfg),
+        assert np.array_equal(shingler.embed_shingles_np(toks, pcfg),
                               jshingler.embed_shingles_np(toks, cfg))
 
 
@@ -132,7 +134,7 @@ def test_build_script_index_and_carry_across(world):
     JAX-built index across unchanged (tokens re-derived identically)."""
     text, _ = world
     jidx = jbuild(jparse(text), CFG.shingle, CFG.search)
-    pidx = build_script_index(parse_script(text), CFG.shingle, CFG.search)
+    pidx = build_script_index(parse_script(text), PCFG.shingle, PCFG.search)
     _same_index(pidx, jidx)
     carried = index_from_numpy(jidx)
     _same_index(carried, jidx)
@@ -147,7 +149,7 @@ def test_concat_indexes_matches(world):
     ex = (ROOT / "examples" / "script.txt").read_text(encoding="utf-8")
     jparts = [(n, jbuild(jparse(t), CFG.shingle, CFG.search))
               for n, t in (("a", text), ("b", ex))]
-    pparts = [(n, build_script_index(parse_script(t), CFG.shingle, CFG.search))
+    pparts = [(n, build_script_index(parse_script(t), PCFG.shingle, PCFG.search))
               for n, t in (("a", text), ("b", ex))]
     _same_index(concat_indexes(pparts), jconcat(jparts))
 
@@ -171,7 +173,7 @@ def test_chain_hits_arrays_matches(world):
     cols = (arr[:, 0].astype(np.int64), arr[:, 1].astype(np.int64),
             arr[:, 2].astype(np.int64), arr[:, 3].astype(np.float32),
             arr[:, 4].astype(np.float32))
-    got = chain_hits_arrays(*cols, wids, ptok, pidx, CFG.shingle, CFG.search)
+    got = chain_hits_arrays(*cols, wids, ptok, pidx, PCFG.shingle, PCFG.search)
     want = jchain(*cols, wids, jtok, jidx, CFG.shingle, CFG.search)
     assert got and [r.to_csv_row() for r in got] == [r.to_csv_row() for r in want]
 
@@ -179,7 +181,7 @@ def test_chain_hits_arrays_matches(world):
 def test_oracle_rows_match(world):
     text, works = world
     jidx = jbuild(jparse(text), CFG.shingle, CFG.search)
-    got, gstats = search_works_oracle(works, index_from_numpy(jidx), CFG)
+    got, gstats = search_works_oracle(works, index_from_numpy(jidx), PCFG)
     want, wstats = joracle(works, jidx, CFG)
     assert got and [r.to_csv_row() for r in got] == [r.to_csv_row() for r in want]
     assert (gstats.num_candidates, gstats.num_verified) == (
@@ -205,6 +207,12 @@ def test_synthetic_matches(seed, num_edits):
     assert out[0] == out[1]
 
 
+PORT_FILES = sorted(
+    str(f.relative_to(ROOT))
+    for f in (ROOT / "fandom_search_tpu_torch").rglob("*.py")
+) + ["chip_smoke.py"]
+
+
 def _imported_modules(path):
     names = set()
     for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
@@ -224,13 +232,23 @@ def test_chip_smoke_imports_only_the_port():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_port_file_imports_nothing_of_jax(rel):
+    """No file of the port, and not chip_smoke.py, imports JAX or any
+    module of the JAX package."""
+    bad = {m for m in _imported_modules(ROOT / rel)
+           if m.split(".")[0] in ("jax", "jaxlib", "fandom_search_tpu")}
+    assert not bad, bad
+
+
 def test_package_imports_without_jax():
-    """With jax unimportable, the port and its engine, ops, CLI and corpus
-    generator load, and of the JAX package only its jax-free config and
-    scrape.clean are touched."""
+    """With jax and the JAX package unimportable, the port and its
+    engine, ops (LSH included), CLI and corpus generator load, and no
+    module of fandom_search_tpu is loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['fandom_search_tpu'] = None\n"
         "import fandom_search_tpu_torch\n"
         "import fandom_search_tpu_torch.search.engine\n"
         "import fandom_search_tpu_torch.search.oracle\n"
@@ -239,11 +257,12 @@ def test_package_imports_without_jax():
         "import fandom_search_tpu_torch.ops.distance_topk\n"
         "import fandom_search_tpu_torch.ops.scan\n"
         "import fandom_search_tpu_torch.ops.smith_waterman\n"
+        "import fandom_search_tpu_torch.ops.lsh\n"
+        "import fandom_search_tpu_torch.scrape.clean\n"
         "import fandom_search_tpu_torch.utils.synthetic\n"
         "import fandom_search_tpu_torch.cli\n"
         "from fandom_search_tpu_torch.cli import build_parser\n"
         "build_parser()\n"
-        "import fandom_search_tpu.scrape.clean\n"
         "print(sorted(m for m in sys.modules if m.startswith('fandom_search_tpu.')))\n"
     )
     res = subprocess.run(
@@ -251,8 +270,63 @@ def test_package_imports_without_jax():
         text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr
-    loaded = set(eval(res.stdout.strip().splitlines()[-1]))
-    assert loaded <= {
-        "fandom_search_tpu.config", "fandom_search_tpu.scrape",
-        "fandom_search_tpu.scrape.clean",
-    }, loaded
+    assert eval(res.stdout.strip().splitlines()[-1]) == []
+
+
+CONFIG_CLASSES = ("ShingleConfig", "SearchConfig", "LSHConfig",
+                  "BucketedConfig", "MeshConfig", "PipelineConfig")
+# field values each class's __post_init__ refuses
+BAD_CONFIGS = {
+    "ShingleConfig": [dict(dim=64), dict(dim=0), dict(n=0)],
+    "SearchConfig": [dict(sw_variant="slow"), dict(batch_queries=1 << 21),
+                     dict(batch_queries=32)],
+    "LSHConfig": [dict(bits=100)],
+    "BucketedConfig": [dict(cap=0), dict(load_factor=0), dict(pairs="some")],
+    "MeshConfig": [],
+    "PipelineConfig": [],
+}
+
+
+@pytest.mark.parametrize("name", CONFIG_CLASSES)
+def test_config_copy_matches(name):
+    """The port's config copy: same fields, defaults and validation
+    errors as fandom_search_tpu.config, field by field."""
+    from fandom_search_tpu import config as jconfig
+    from fandom_search_tpu_torch import config as pconfig
+
+    jcls, pcls = getattr(jconfig, name), getattr(pconfig, name)
+    jf, pf = dataclasses.fields(jcls), dataclasses.fields(pcls)
+    assert [(f.name, f.type) for f in pf] == [(f.name, f.type) for f in jf]
+    assert pcls.__dataclass_params__.frozen and jcls.__dataclass_params__.frozen
+    assert dataclasses.astuple(pcls()) == dataclasses.astuple(jcls())
+    for bad in BAD_CONFIGS[name]:
+        with pytest.raises(ValueError) as je:
+            jcls(**bad)
+        with pytest.raises(ValueError) as pe:
+            pcls(**bad)
+        assert str(pe.value) == str(je.value)
+    if name == "MeshConfig":
+        assert pcls(works=2, script=3).num_devices == 6
+
+
+def test_load_works_dir_matches(tmp_path):
+    """The port's load_works_dir copy reads .txt and .html works exactly
+    as the original does (a .txt wins over an .html of the same id; a
+    page without #workskin is dropped)."""
+    from fandom_search_tpu.scrape.clean import load_works_dir as jload
+    from fandom_search_tpu_torch.scrape.clean import load_works_dir
+
+    page = (
+        '<html><body><div id="workskin"><div class="preface">Title</div>'
+        '<div class="userstuff"><p>First  line. </p><p></p>'
+        '<p>Second line\u2014with a dash.</p></div>'
+        '<div class="notes">a note</div></div></body></html>'
+    )
+    (tmp_path / "a.txt").write_text("Plain text work.\nTwo lines.", encoding="utf-8")
+    (tmp_path / "b.html").write_text(page, encoding="utf-8")
+    (tmp_path / "a.html").write_text(page, encoding="utf-8")
+    (tmp_path / "broken.html").write_text("<html>error</html>", encoding="utf-8")
+    (tmp_path / "c.txt").write_bytes(b"bad byte \xff here")
+    got, want = load_works_dir(tmp_path), jload(tmp_path)
+    assert got == want and set(got) == {"a", "b", "c"}
+    assert "Second line" in got["b"] and "a note" not in got["b"]

@@ -1,9 +1,10 @@
-"""K4 Smith-Waterman: the port's plain version against the JAX package.
+"""K4 and K5 Smith-Waterman: the port's plain version against the JAX package.
 
 Tolerance: 0.  With the default integer scores every DP cell is an
 exact small integer and the score is one f32 division, so results
 compare exactly (np.array_equal) against sw_normalized_np,
-sw_normalized_jnp and the interpreted Pallas "wide" kernel.
+sw_normalized_jnp and the interpreted Pallas kernels: "wide" (K4's
+TPU kernel) and the lane-major "fast", "r2" and "dyn" (K5's).
 """
 
 import dataclasses
@@ -18,9 +19,13 @@ from fandom_search_tpu.ops.smith_waterman import (
     sw_normalized_pallas,
 )
 from fandom_search_tpu.search.verify_np import sw_normalized_np
+from fandom_search_tpu_torch.config import SearchConfig as PortSearchConfig
+from fandom_search_tpu_torch.ops import _cuda
+from fandom_search_tpu_torch.ops import smith_waterman as port_sw
 from fandom_search_tpu_torch.ops.smith_waterman import sw_normalized
 
 CFG = SearchConfig()
+PCFG = PortSearchConfig()
 LA, LB = 64, 64
 
 
@@ -39,7 +44,7 @@ def _batch(rng, bsz, vocab=40):
     return a, b, len_a, len_b
 
 
-def _port(a, b, len_a, len_b, cfg=CFG):
+def _port(a, b, len_a, len_b, cfg=PCFG):
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x).view(np.int32))  # noqa: E731
     return sw_normalized(t(a), t(b), t(len_a), t(len_b), cfg).numpy()
 
@@ -78,17 +83,67 @@ def test_plain_sw_all_padding_tile_and_ragged_widths(rng):
 
 
 def test_plain_sw_other_scores(rng):
-    cfg = dataclasses.replace(CFG, sw_match=3.0, sw_mismatch=-2.0, sw_gap=-0.5)
+    scores = dict(sw_match=3.0, sw_mismatch=-2.0, sw_gap=-0.5)
+    cfg = dataclasses.replace(CFG, **scores)
     a, b, len_a, len_b = _batch(rng, 24, vocab=6)
-    got = _port(a, b, len_a, len_b, cfg)
+    got = _port(a, b, len_a, len_b, dataclasses.replace(PCFG, **scores))
     assert np.array_equal(got, np.asarray(sw_normalized_jnp(a, b, len_a, len_b, cfg)))
 
 
 def test_plain_sw_empty_batch_and_bad_args():
     z = torch.zeros((0, LA), dtype=torch.int32)
     zl = torch.zeros((0,), dtype=torch.int32)
-    assert sw_normalized(z, z, zl, zl, CFG).shape == (0,)
+    assert sw_normalized(z, z, zl, zl, PCFG).shape == (0,)
     with pytest.raises(ValueError):
-        sw_normalized(z.long(), z, zl, zl, CFG)
+        sw_normalized(z.long(), z, zl, zl, PCFG)
     with pytest.raises(ValueError):
-        sw_normalized(z, z, zl.long(), zl, CFG)
+        sw_normalized(z, z, zl.long(), zl, PCFG)
+
+
+@pytest.mark.parametrize("variant", ["fast", "r2", "dyn"])
+def test_plain_sw_matches_lane_major_pallas(rng, variant):
+    """K5's route (sw_variant fast/r2/dyn) on the CPU equals the JAX
+    package's lane-major kernel in interpret mode."""
+    a, b, len_a, len_b = _batch(rng, 40)
+    got = _port(a, b, len_a, len_b, dataclasses.replace(PCFG, sw_variant=variant))
+    pal = sw_normalized_pallas(a, b, len_a, len_b, CFG, interpret=True,
+                               variant=variant)
+    assert np.array_equal(got, np.asarray(pal))
+    assert np.array_equal(got, _np(a, b, len_a, len_b))
+
+
+class _FakeLib:
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append(name)
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("variant,symbol,counter", [
+    ("fast", "fs_sw_lane", "sw_lane"), ("r2", "fs_sw_lane", "sw_lane"),
+    ("dyn", "fs_sw_lane", "sw_lane"), ("wide", "fs_sw", "sw_wide"),
+    ("exitw", "fs_sw", "sw_wide"), ("slide", "fs_sw", "sw_wide"),
+])
+def test_variant_routes_to_its_kernel(monkeypatch, variant, symbol, counter):
+    """fast/r2/dyn launch K5, wide/exitw/slide launch K4; the launching
+    wrapper's counter grows by one, the other's not at all."""
+    lib = _FakeLib()
+    monkeypatch.setattr(_cuda, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(_cuda, "library", lambda: lib)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda device: 0)
+    a = torch.zeros((3, LA), dtype=torch.int32)
+    ln = torch.zeros((3,), dtype=torch.int32)
+    before = {c: getattr(port_sw, c).launches for c in ("sw_lane", "sw_wide")}
+    out = sw_normalized(a, a, ln, ln, dataclasses.replace(PCFG, sw_variant=variant))
+    assert out.shape == (3,) and lib.calls == [symbol]
+    for c, n in before.items():
+        assert getattr(port_sw, c).launches == n + (c == counter)
+    with pytest.raises(ValueError, match="LB <= 64"):
+        sw_normalized(a, torch.zeros((3, 65), dtype=torch.int32), ln, ln,
+                      dataclasses.replace(PCFG, sw_variant=variant))
+    assert lib.calls == [symbol]
+
