@@ -9,12 +9,13 @@ and time:
 1. device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them.
 2. build: compiles fandom_search_tpu_torch/csrc/*.cu with nvcc.
-3. kernels: K1-K6 against their plain PyTorch versions on the card, at
+3. kernels: K1-K7 against their plain PyTorch versions on the card, at
    the shapes of the paths, on inputs from the end-to-end world; exact
    equality is required (tolerance 0: every output is an integer or one
    f32 division of integers).  Prints warm times of both, the least
    time the card could take (bound) and, where one PyTorch call
-   computes the same function, that call's time.
+   computes the same function, that call's time.  K7 (merge="rows")
+   runs on K2's inputs and is timed beside K2.
 4. exact end to end: SearchEngine.search_works over the world — a
    2,000-line script (~20k shingles) against 10,000 works of 2,000 words
    with 3 planted quotes each (~20M query shingles, ~20 batches of
@@ -26,6 +27,21 @@ and time:
    K3, K5 and K6 must launch, K2 and K4 must not; every planted quote
    must be found; the rows must agree with the exact path's on at least
    95% of them.
+6. rows A/B (scripts/merge_rows_ab.py's shape, 2^17 x 2^13, plant
+   densities clean, 1% and 5%): topk_dot with merge="rows" (K7) and
+   "insert" (K2), counted; K7 equals its plain version in every slot
+   and K2 at and above min_keep; both timed per density; merge="rows"
+   at min_keep=-inf launches K2, not K7.
+7. persist / serve, on a 600-work sample of the world written to disk:
+   the CLI's `index` with and without --lsh, `search --index` (rows
+   equal a fresh-index search; with --lsh too), loaded LSH codes equal
+   fresh ones; a `make_server` on an ephemeral localhost port over the
+   loaded index answers 3 POST /search of 200 works (rows equal the
+   engine called directly, the first request's also the NumPy
+   oracle's), GET /health (a CUDA device) and GET /stats (3 requests);
+   `matrix --html` on the search's CSV.
+8. profile: one warm `search --index --profile` over the sample; prints
+   the device's busy share from the trace (kernel time over wall time).
 
 It prints the kernel table as one JSON line, then, as its last line,
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -39,30 +55,41 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PKG = "fandom_search_tpu_torch"
 KERNELS = (
-    # name, ops module, wrapper, source, TPU kernel it replaces
-    ("K1 embed", "embed", "embed_shingles", "csrc/embed.cu",
-     "fandom_search_tpu/ops/embed.py:41"),
-    ("K2 distance_topk", "distance_topk", "topk_dot", "csrc/distance_topk.cu",
-     "fandom_search_tpu/ops/distance_topk.py:104"),
-    ("K3 scan", "scan", "scan1d_i32", "csrc/scan.cu",
-     "fandom_search_tpu/ops/scan.py:61"),
-    ("K4 smith_waterman", "smith_waterman", "sw_wide",
-     "csrc/smith_waterman.cu", "fandom_search_tpu/ops/smith_waterman.py:452"),
-    ("K5 smith_waterman_lane", "smith_waterman", "sw_lane",
-     "csrc/smith_waterman_lane.cu", "fandom_search_tpu/ops/smith_waterman.py:233"),
-    ("K6 hamming_topk", "lsh", "hamming_topk", "csrc/hamming_topk.cu",
-     "fandom_search_tpu/ops/lsh.py:121"),
+    # key, name, ops module, wrapper, its launch counter, source, TPU
+    # kernel it replaces, the path whose launches the table reports
+    ("embed_shingles", "K1 embed", "embed", "embed_shingles", "launches",
+     "csrc/embed.cu", "fandom_search_tpu/ops/embed.py:41", "exact"),
+    ("topk_dot", "K2 distance_topk", "distance_topk", "topk_dot", "launches",
+     "csrc/distance_topk.cu", "fandom_search_tpu/ops/distance_topk.py:104", "exact"),
+    ("scan1d_i32", "K3 scan", "scan", "scan1d_i32", "launches",
+     "csrc/scan.cu", "fandom_search_tpu/ops/scan.py:61", "exact"),
+    ("sw_wide", "K4 smith_waterman", "smith_waterman", "sw_wide", "launches",
+     "csrc/smith_waterman.cu", "fandom_search_tpu/ops/smith_waterman.py:452", "exact"),
+    ("sw_lane", "K5 smith_waterman_lane", "smith_waterman", "sw_lane", "launches",
+     "csrc/smith_waterman_lane.cu", "fandom_search_tpu/ops/smith_waterman.py:233", "lsh"),
+    ("hamming_topk", "K6 hamming_topk", "lsh", "hamming_topk", "launches",
+     "csrc/hamming_topk.cu", "fandom_search_tpu/ops/lsh.py:121", "lsh"),
+    ("topk_dot_rows", "K7 distance_topk_rows", "distance_topk", "topk_dot",
+     "launches_rows", "csrc/distance_topk_rows.cu",
+     "fandom_search_tpu/ops/distance_topk.py:418", "rows_ab"),
 )
 # which kernels each path must launch; the others must stay at 0
+EXACT = ("embed_shingles", "topk_dot", "scan1d_i32", "sw_wide")
 PATHS = {
-    "exact": ("embed_shingles", "topk_dot", "scan1d_i32", "sw_wide"),
+    "exact": EXACT,
     "lsh": ("embed_shingles", "scan1d_i32", "sw_lane", "hamming_topk"),
+    "rows_ab": ("topk_dot", "topk_dot_rows"),
+    # index (+ --lsh), search --index (+ --lsh: K6, then K4 verifies)
+    "index_search": EXACT + ("hamming_topk",),
+    "serve": EXACT,
+    "profile": EXACT,
 }
 # NVIDIA H100 SXM peaks (data sheet, dense): HBM bytes/s, int8 tensor-core
 # operations/s, and the CUDA cores' f32 rate, taken for their integer and
@@ -70,6 +97,9 @@ PATHS = {
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1.979e15
 CUDA_CORE_OPS_S = 67e12
+# worker processes for the NumPy oracle of the serve phase (the card's
+# host has 8 cores)
+ORACLE_PROCS = 8
 # f32 operations per Smith-Waterman cell: two adds, four max, the
 # compare-select of the substitution score
 SW_OPS_PER_CELL = 8
@@ -114,28 +144,34 @@ def bound(nbytes: float, ops: float, ops_rate: float):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def wrapper(fn_name):
+def counters():
+    """{kernel key: (wrapper, name of its launch counter)}."""
     import importlib
 
-    for _, mod, fn, _, _ in KERNELS:
-        if fn == fn_name:
-            return getattr(importlib.import_module(f"{PKG}.ops.{mod}"), fn)
-    raise KeyError(fn_name)
+    return {key: (getattr(importlib.import_module(f"{PKG}.ops.{mod}"), fn), attr)
+            for key, _, mod, fn, attr, _, _, _ in KERNELS}
+
+
+def zero_counters():
+    for w, attr in counters().values():
+        setattr(w, attr, 0)
+
+
+def read_counters():
+    return {key: getattr(w, attr) for key, (w, attr) in counters().items()}
 
 
 def counted(path, run):
     """Run ``run()`` with every launch counter at 0; check that exactly
     the kernels of ``path`` launched; return (result, launches)."""
-    wrappers = {fn: wrapper(fn) for _, _, fn, _, _ in KERNELS}
-    for w in wrappers.values():
-        w.launches = 0
+    zero_counters()
     out = run()
-    launches = {fn: w.launches for fn, w in wrappers.items()}
-    for fn, n in launches.items():
-        if fn in PATHS[path]:
-            check(n > 0, f"the {path} path never launched {fn}")
+    launches = read_counters()
+    for key, n in launches.items():
+        if key in PATHS[path]:
+            check(n > 0, f"the {path} path never launched {key}")
         else:
-            check(n == 0, f"the {path} path launched {fn} {n} times")
+            check(n == 0, f"the {path} path launched {key} {n} times")
     return out, launches
 
 
@@ -153,15 +189,14 @@ def make_world(seed: int, num_works: int):
     rng = np.random.default_rng(seed)
     cfg = PipelineConfig()
     vocab = make_vocab(rng, 5000)
-    lines = parse_script(
-        make_script(rng, vocab, num_lines=2000, words_per_line=(6, 14))
-    )
+    script_text = make_script(rng, vocab, num_lines=2000, words_per_line=(6, 14))
+    lines = parse_script(script_text)
     index = build_script_index(lines, cfg.shingle, cfg.search)
     works, planted = make_corpus_with_quotes(
         rng, [ln.text for ln in lines], num_works=num_works,
         words_per_work=2000, quotes_per_work=3, vocab=vocab,
     )
-    return cfg, index, works, planted
+    return cfg, index, works, planted, script_text
 
 
 def first_batch_stream(engine, works):
@@ -301,6 +336,27 @@ def kernel_checks(engine, works, seed: int):
     )
     done("K2 distance_topk", t0,
          f"NQ={q.shape[0]} NS={ns} k={k} above_thr={n_above} {res['topk_dot']}")
+
+    # K7 (merge="rows") on K2's inputs: every slot equal to the plain
+    # version, so equal to K2 at and above the threshold too
+    t0 = phase("K7 distance_topk_rows")
+    rv, ri = topk_dot(q, s, ns, k, min_keep=thr, merge="rows")
+    sync()
+    check(torch.equal(rv, pv) and torch.equal(ri, pi),
+          "K7 differs from the plain version at the engine shape")
+    check(torch.equal(rv[above], kv[above]) and torch.equal(ri[above], ki[above]),
+          "K7 differs from K2 at or above the threshold")
+    res["topk_dot_rows"] = dict(
+        max_abs_err=float((rv[above] - pv[above]).abs().max()),
+        ms=cuda_ms(lambda: topk_dot(q, s, ns, k, min_keep=thr, merge="rows"), 3),
+        k2_ms_beside=cuda_ms(lambda: topk_dot(q, s, ns, k, min_keep=thr), 3),
+        plain_ms=cuda_ms(lambda: topk_dot_plain(q, s, ns, k, keep_i), 1),
+        library_ms=None,
+        shape=f"NQ={q.shape[0]} NS={ns} k={k} min_keep={thr}",
+        **bound(q.numel() + s.numel() + q.shape[0] * k * 8,
+                2 * q.shape[0] * ns * q.shape[1], INT8_OPS_S),
+    )
+    done("K7 distance_topk_rows", t0, f"equal to plain in every slot; {res['topk_dot_rows']}")
 
     # K3, both ops, at 2^20 and 2^20 + 37
     t0 = phase("K3 scan")
@@ -568,6 +624,270 @@ def lsh_end_to_end(index, cfg, works, planted, exact_rows, device="cuda"):
     return launches
 
 
+def rows_ab(cfg, seed: int, lnq: int = 17, lns: int = 13, device="cuda"):
+    """Phase 6: scripts/merge_rows_ab.py's A/B of merge="rows" (K7)
+    against "insert" (K2), at plant densities clean, 1% and 5%."""
+    import numpy as np
+    import torch
+
+    from fandom_search_tpu_torch.data.shingler import embed_shingles_np
+    from fandom_search_tpu_torch.ops.distance_topk import (
+        min_keep_int, topk_dot, topk_dot_plain,
+    )
+
+    t0 = phase("rows A/B")
+    scfg = cfg.shingle
+    nq, ns, k, mk = 1 << lnq, 1 << lns, 10, 3.5
+    keep_i = min_keep_int(mk, scfg.dim)
+    rng = np.random.default_rng(seed + 7)
+    s_stream = rng.integers(0, 2**32, size=ns + scfg.n - 1, dtype=np.uint32)
+    s = torch.from_numpy(embed_shingles_np(s_stream, scfg)).to(device)
+    qs = {}
+    for density, stride in (("clean", 0), ("1%", 100), ("5%", 20)):
+        q_stream = rng.integers(0, 2**32, size=nq + scfg.n - 1, dtype=np.uint32)
+        if stride:
+            for qi in range(0, nq, stride):
+                si = int(rng.integers(0, ns))
+                q_stream[qi : qi + scfg.n] = s_stream[si : si + scfg.n]
+        qs[density] = torch.from_numpy(embed_shingles_np(q_stream, scfg)).to(device)
+
+    def run():
+        out = {d: (topk_dot(q, s, ns, k, min_keep=mk, merge="rows"),
+                   topk_dot(q, s, ns, k, min_keep=mk, merge="insert"))
+               for d, q in qs.items()}
+        torch.cuda.synchronize()
+        return out
+
+    out, launches = counted("rows_ab", run)
+    per_density = {}
+    err = 0.0
+    for d, q in qs.items():
+        (rv, ri), (kv, ki) = out[d]
+        pv, pi = topk_dot_plain(q, s, ns, k, keep_i)
+        torch.cuda.synchronize()
+        check(torch.equal(rv, pv) and torch.equal(ri, pi),
+              f"rows A/B {d}: K7 differs from the plain version")
+        above = kv >= mk
+        check(torch.equal(rv[above], kv[above]) and torch.equal(ri[above], ki[above])
+              and torch.equal(above, rv >= mk),
+              f"rows A/B {d}: K7 differs from K2 at or above min_keep")
+        err = max(err, float((rv - pv).abs().max()))
+        per_density[d] = dict(
+            filled=int(above.sum()),
+            k7_ms=cuda_ms(lambda: topk_dot(q, s, ns, k, min_keep=mk, merge="rows"), 10),
+            k2_ms=cuda_ms(lambda: topk_dot(q, s, ns, k, min_keep=mk), 10),
+        )
+    # below min_keep 1/dim "rows" is the exact top-k, which K2 computes
+    q = qs["clean"]
+    zero_counters()
+    topk_dot(q, s, ns, k, merge="rows")
+    torch.cuda.synchronize()
+    n = read_counters()
+    check(n["topk_dot"] == 1 and n["topk_dot_rows"] == 0,
+          f"merge='rows' at min_keep=-inf launched {n}")
+    print(json.dumps({"rows_ab": {"nq": nq, "ns": ns, "k": k, "min_keep": mk,
+                                  "densities": per_density}}), flush=True)
+    done("rows A/B", t0, f"K7 equal to plain in every slot and to K2 above "
+                         f"{mk} at every density; launches {launches}")
+    return launches, err
+
+
+def _oracle_chunk(works, index, cfg):
+    from fandom_search_tpu_torch.search.oracle import search_works_oracle
+
+    return search_works_oracle(works, index, cfg)[0]
+
+
+def oracle_rows(works, index, cfg):
+    """The NumPy oracle's rows for ``works``, over ORACLE_PROCS worker
+    processes (it takes ~0.8 s a 2,000-word work on one core)."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    ids = sorted(works)
+    chunks = [c for c in (ids[i::ORACLE_PROCS] for i in range(ORACLE_PROCS)) if c]
+    with ProcessPoolExecutor(len(chunks), mp_context=mp.get_context("spawn")) as ex:
+        futs = [ex.submit(_oracle_chunk, {w: works[w] for w in c}, index, cfg)
+                for c in chunks]
+        return [r for f in futs for r in f.result()]
+
+
+def cli_json(argv):
+    """Run the port's CLI in this process; return its manifest line."""
+    import contextlib
+    import io
+
+    from fandom_search_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    check(rc == 0, f"cli {argv[0]} exited {rc}")
+    out = buf.getvalue().strip().splitlines()
+    return json.loads(out[-1]) if out else None
+
+
+def persist_serve(works, script_text, root: Path, sample: int = 600, per_request: int = 200,
+                  device="cuda"):
+    """Phase 7: index -> search --index -> serve -> matrix --html through
+    the port's entry points on a sample of the world's works."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from fandom_search_tpu_torch import cli
+    from fandom_search_tpu_torch.ops.lsh import LSHIndex
+    from fandom_search_tpu_torch.search.engine import SearchEngine
+    from fandom_search_tpu_torch.search.persist import load_index, load_lsh
+    from fandom_search_tpu_torch.search.server import SearchService, make_server
+    from fandom_search_tpu_torch.search.types import MatchRow
+
+    t0 = phase("persist_serve")
+    ids = sorted(works)[:sample]
+    script = root / "script.txt"
+    script.write_text(script_text, encoding="utf-8")
+    wdir = root / "works"
+    wdir.mkdir()
+    for w in ids:
+        (wdir / f"{w}.txt").write_text(works[w], encoding="utf-8")
+    idx, idx_lsh = root / "idx", root / "idx_lsh"
+
+    def index_and_search():
+        check(cli.main(["index", str(script), "-o", str(idx)]) == 0, "index failed")
+        check(cli.main(["index", str(script), "-o", str(idx_lsh), "--lsh",
+                        "--device", device]) == 0,
+              "index --lsh failed")
+        out = {}
+        for name, argv in (
+            ("loaded", [str(wdir), "--index", str(idx)]),
+            ("fresh", [str(wdir), str(script)]),
+            ("loaded_lsh", [str(wdir), "--index", str(idx_lsh), "--lsh"]),
+            ("fresh_lsh", [str(wdir), str(script), "--lsh"]),
+        ):
+            out[name] = cli_json(["search", *argv, "-o", str(root / f"{name}.csv"),
+                                  "--device", device])
+        return out
+
+    manifests, launches = counted("index_search", index_and_search)
+    for a, b in (("loaded", "fresh"), ("loaded_lsh", "fresh_lsh")):
+        check((root / f"{a}.csv").read_bytes() == (root / f"{b}.csv").read_bytes(),
+              f"search --index rows ({a}) differ from a fresh-index search ({b})")
+    check(manifests["loaded"]["matches"] > 0, "search --index found no rows")
+    t1 = time.perf_counter()
+    index, cfg = load_index(idx)
+    load_s = time.perf_counter() - t1
+    loaded = load_lsh(idx_lsh, cfg.lsh).to(device)
+    fresh = LSHIndex.build(index.embeddings, cfg.lsh, cfg.shingle,
+                           pad_multiple=cfg.search.script_pad_multiple, device=device)
+    check(torch.equal(loaded.codes_t, fresh.codes_t)
+          and torch.equal(loaded.projection, fresh.projection)
+          and loaded.ns_valid == fresh.ns_valid, "loaded LSH codes differ from fresh ones")
+    print(json.dumps({"index_search": {
+        "works": len(ids), "load_index_seconds": load_s,
+        **{f"{k}_seconds_index": m["seconds_index"] for k, m in manifests.items()},
+        **{f"{k}_seconds_search": m["seconds_search"] for k, m in manifests.items()},
+        "rows": manifests["loaded"]["matches"], "lsh_rows": manifests["loaded_lsh"]["matches"],
+        "launches": launches,
+    }}), flush=True)
+
+    # the server over the loaded index, on an ephemeral localhost port
+    engine = SearchEngine(index, cfg, device=device)
+    service = SearchService(engine, index, cfg)
+    warm_s = service.warm()
+    srv = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    requests = [{w: works[w] for w in ids[i : i + per_request]}
+                for i in range(0, 3 * per_request, per_request)]
+
+    def call(path, body=None):
+        data = None if body is None else json.dumps({"works": body}).encode()
+        req = urllib.request.Request(base + path, data=data, method="GET" if body is None
+                                     else "POST", headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            check(r.status == 200, f"{path}: HTTP {r.status}")
+            return json.loads(r.read()), time.perf_counter() - t
+
+    def serve():
+        answers = [call("/search", body) for body in requests]
+        return answers, call("/health")[0], call("/stats")[0]
+
+    try:
+        (answers, health, stats), serve_launches = counted("serve", serve)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "the server thread did not stop")
+    check(health["device"].startswith("cuda:" if device == "cuda" else "cpu"),
+          f"/health names {health['device']}")
+    check(stats["requests"] == 3 and stats["errors"] == 0, f"/stats: {stats}")
+    as_json = lambda rows: [dict(zip(MatchRow.CSV_FIELDS, r.to_csv_row()))  # noqa: E731
+                            for r in rows]
+    for i, (body, (ans, _)) in enumerate(zip(requests, answers)):
+        direct, _ = engine.search_works(body)
+        check(ans["matches"] == as_json(direct),
+              f"request {i}: rows differ from the engine called directly")
+        check(ans["works"] == len(body), f"request {i}: {ans['works']} works answered")
+    t1 = time.perf_counter()
+    orows = oracle_rows(requests[0], index, cfg)
+    oracle_s = time.perf_counter() - t1
+    key = lambda d: tuple(str(d[f]) for f in MatchRow.CSV_FIELDS)  # noqa: E731
+    check(sorted(map(key, answers[0][0]["matches"])) == sorted(map(key, as_json(orows))),
+          "request 0: rows differ from the NumPy oracle's")
+    check(answers[0][0]["matches"], "request 0 found no rows")
+    print(json.dumps({"serve": {
+        "warm_seconds": warm_s, "health": health, "stats": stats,
+        "requests": [{"works": a["works"], "rows": a["num_matches"],
+                      "query_shingles": a["query_shingles"], "seconds": a["seconds"],
+                      "queue_seconds": a["queue_seconds"], "client_seconds": c}
+                     for a, c in answers],
+        "oracle_rows": len(orows), "oracle_seconds": oracle_s, "launches": serve_launches,
+    }}), flush=True)
+
+    # matrix --html over the search --index CSV
+    check(cli.main(["matrix", str(root / "loaded.csv"), "-o", str(root / "matrix.csv"),
+                    "--script", str(script), "--html", str(root / "engagement.html")]) == 0,
+          "matrix failed")
+    import csv
+
+    with (root / "matrix.csv").open(newline="", encoding="utf-8") as f:
+        recs = list(csv.DictReader(f))
+    check(len(recs) == len(index.lines)
+          and sum(int(r["matches"]) for r in recs) == manifests["loaded"]["matches"],
+          "matrix counts do not add up to the search's rows")
+    check("Total matches" in (root / "engagement.html").read_text(encoding="utf-8"),
+          "engagement.html is not the heatmap page")
+    done("persist_serve", t0, f"{len(ids)} works; search --index rows equal a fresh "
+                              f"search (exact and --lsh); 3 requests equal the engine, "
+                              f"request 0 the oracle ({len(orows)} rows); load_index "
+                              f"{load_s:.3f}s; matrix over {len(recs)} lines")
+    return {"index_search": launches, "serve": serve_launches}, idx, wdir
+
+
+def profile_phase(idx: Path, wdir: Path, root: Path, device="cuda"):
+    """Phase 8: one warm exact search --index under --profile; the
+    device's busy share from the trace."""
+    from fandom_search_tpu_torch.utils.profiling import TRACE_NAME, busy_share
+
+    t0 = phase("profile")
+    pdir = root / "profile"
+    man, launches = counted("profile", lambda: cli_json(
+        ["search", str(wdir), "--index", str(idx), "-o", str(root / "profiled.csv"),
+         "--profile", str(pdir), "--device", device]))
+    share = busy_share(pdir / TRACE_NAME)
+    check(share["kernels"] > 0, "the profiler trace holds no kernel event")
+    print(json.dumps({"profile": dict(share, seconds_search=man["seconds_search"],
+                                      works=man["works"], launches=launches)}), flush=True)
+    done("profile", t0, f"busy share {share['busy_share']:.4f} "
+                        f"({share['kernel_ms']:.1f} of {share['wall_ms']:.1f} ms)")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--works", type=int, default=10_000)
@@ -601,23 +921,29 @@ def main(argv=None) -> int:
     from fandom_search_tpu_torch.search.engine import SearchEngine
 
     t0 = phase("world")
-    cfg, index, works, planted = make_world(args.seed, args.works)
+    cfg, index, works, planted, script_text = make_world(args.seed, args.works)
     engine = SearchEngine(index, cfg, device="cuda")
     done("world", t0, f"{len(index.lines)} lines, {index.num_shingles} script "
                       f"shingles, {len(works)} works, {len(planted)} planted")
 
     res = kernel_checks(engine, works, args.seed)
-    exact_rows, exact_launches = end_to_end(engine, works, planted, index, cfg)
+    launches = {}
+    exact_rows, launches["exact"] = end_to_end(engine, works, planted, index, cfg)
     no_host_sync(engine, works, "exact")
-    lsh_launches = lsh_end_to_end(index, cfg, works, planted, exact_rows)
+    launches["lsh"] = lsh_end_to_end(index, cfg, works, planted, exact_rows)
+    launches["rows_ab"], ab_err = rows_ab(cfg, args.seed)
+    res["topk_dot_rows"]["max_abs_err"] = max(res["topk_dot_rows"]["max_abs_err"], ab_err)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_phase, idx, wdir = persist_serve(works, script_text, Path(tmp))
+        launches.update(by_phase)
+        launches["profile"] = profile_phase(idx, wdir, Path(tmp))
 
     table = []
-    for name, _, fn, src, rep in KERNELS:
-        by_path = {"exact": exact_launches[fn], "lsh": lsh_launches[fn]}
-        path = "exact" if fn in PATHS["exact"] else "lsh"
+    for key, name, _, _, _, src, rep, path in KERNELS:
+        by_path = {p: n[key] for p, n in launches.items()}
         table.append(dict(name=name, route="cuda", source=f"{PKG}/{src}",
                           replaces=rep, launches=by_path[path],
-                          launches_by_path=by_path, **res[fn]))
+                          launches_by_path=by_path, **res[key]))
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

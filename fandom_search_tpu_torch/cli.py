@@ -1,22 +1,32 @@
-"""``python -m fandom_search_tpu_torch search``; counterpart of fandom_search_tpu/cli.py:474 (cmd_search).
+"""The port's CLI; counterpart of fandom_search_tpu/cli.py (index, search, serve, matrix).
 
-    python -m fandom_search_tpu_torch search WORKS_DIR SCRIPT [SCRIPT ...] \\
-        -o matches.csv [--k K] [--candidate-threshold T] \\
-        [--verify-threshold V] [--sw-variant VARIANT] [--lsh] \\
-        [--device cuda|cpu]
+    python -m fandom_search_tpu_torch index SCRIPT [SCRIPT ...] -o idx/ [--lsh]
+    python -m fandom_search_tpu_torch search WORKS_DIR (SCRIPT ... | --index idx/) \\
+        -o matches.csv [--parquet] [--resume-dir DIR] [--profile DIR] \\
+        [--lsh] [--sw-variant VARIANT] [--selfcheck N] [--oracle] [search flags]
+    python -m fandom_search_tpu_torch serve (SCRIPT ... | --index idx/) \\
+        [--host 127.0.0.1] [--port 8765] [--no-warm] [search flags]
+    python -m fandom_search_tpu_torch matrix matches.csv -o matrix.csv \\
+        [--script SCRIPT ...] [--html page.html] [--title TITLE]
 
-``--lsh`` swaps the exact candidate stage for the LSH prefilter (K6
-Hamming top-R, then an exact rerank) inside the engine's device step;
-``--sw-variant`` picks the Smith-Waterman kernel: fast, r2 and dyn run
-K5, wide, exitw and slide run K4 (the same scores).  ``--device``
-defaults to ``cuda`` and fails when CUDA is missing; ``--device cpu`` is
-the explicit way to run the kernels' plain PyTorch versions.  Prints one
-JSON manifest line, like the JAX package's CLI.
+``index`` writes the script index once (``search/persist.py``; ``--lsh``
+adds the prefilter's codes); ``search --index`` and ``serve --index``
+load it, and search flags given then overlay its stored config, as in
+the JAX package.  ``--lsh`` swaps the exact candidate stage for the LSH
+prefilter (K6 Hamming top-R, then an exact rerank) inside the engine's
+device step; ``--sw-variant`` picks the Smith-Waterman kernel: fast, r2
+and dyn run K5, wide, exitw and slide run K4 (the same scores).
+``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the search.
+``--device`` defaults to ``cuda`` and fails when CUDA is missing;
+``--device cpu`` is the explicit way to run the kernels' plain PyTorch
+versions.  ``search`` prints one JSON manifest line, like the JAX
+package's CLI.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
@@ -25,19 +35,123 @@ import time
 from pathlib import Path
 
 
-def _pipeline_config(args):
-    from fandom_search_tpu_torch.config import PipelineConfig, SearchConfig
+def _add_search_flags(p: argparse.ArgumentParser) -> None:
+    # Defaults are None so a persisted-index config (`search --index`)
+    # can tell "user asked for this" from "flag left alone": only
+    # explicitly passed flags overlay the stored config.
+    p.add_argument("--k", type=int, default=None,
+                   help="top-k per query shingle (default 10)")
+    p.add_argument("--shingle-n", type=int, default=None,
+                   help="words per shingle (default 6; index-bound)")
+    p.add_argument("--candidate-threshold", type=float, default=None,
+                   help="min estimated matching words (of n) to keep a "
+                        "candidate (default 3.5)")
+    p.add_argument("--verify-threshold", type=float, default=None,
+                   help="min normalized alignment score to keep a hit "
+                        "(default 0.35)")
+    p.add_argument("--chain-gap", type=int, default=None,
+                   help="max token gap when chaining hits (default 12)")
+    p.add_argument("--batch-queries", type=int, default=None,
+                   help="query shingles per device step (default 1048576)")
+    p.add_argument("--lookahead-batches", type=int, default=None,
+                   help="batches in flight ahead of result consumption "
+                        "(default 1)")
+    p.add_argument("--sw-variant", default=None, dest="sw_variant",
+                   choices=("fast", "r2", "dyn", "wide", "exitw", "slide"),
+                   help="Smith-Waterman variant (default wide): fast, r2 "
+                        "and dyn run the warp-per-pair kernel K5, wide, "
+                        "exitw and slide the thread-per-pair kernel K4; "
+                        "all give the same scores")
+    p.add_argument("--lsh", action="store_true",
+                   help="use the LSH prefilter for candidate generation")
+    p.add_argument("--oracle", action="store_true",
+                   help="run the NumPy reference pipeline instead of the "
+                        "engine")
+    p.add_argument("--selfcheck", type=int, default=0, metavar="N",
+                   help="re-run N sample works through the NumPy oracle "
+                        "and report row agreement in the manifest")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; fails without CUDA) or cpu (the "
+                        "kernels' plain PyTorch versions)")
 
-    over = {}
-    if args.k is not None:
-        over["k"] = args.k
-    if args.candidate_threshold is not None:
-        over["candidate_threshold"] = args.candidate_threshold
-    if args.verify_threshold is not None:
-        over["verify_threshold"] = args.verify_threshold
-    if args.sw_variant is not None:
-        over["sw_variant"] = args.sw_variant
-    return PipelineConfig(search=dataclasses.replace(SearchConfig(), **over))
+
+def _device(args):
+    """The resolved --device; exit 2 with the reason when it is missing."""
+    from fandom_search_tpu_torch.search.engine import resolve_device
+
+    try:
+        return resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        raise SystemExit(2) from e
+
+
+def _runtime_overrides(args) -> dict:
+    """Runtime-only SearchConfig fields the user explicitly set."""
+    out = {}
+    for field in ("k", "candidate_threshold", "verify_threshold", "chain_gap",
+                  "batch_queries", "lookahead_batches", "sw_variant"):
+        v = getattr(args, field)
+        if v is not None:
+            out[field] = v
+    return out
+
+
+def _pipeline_config(args):
+    from fandom_search_tpu_torch.config import PipelineConfig, SearchConfig, ShingleConfig
+
+    shingle = ShingleConfig() if args.shingle_n is None else ShingleConfig(n=args.shingle_n)
+    return PipelineConfig(
+        shingle=shingle,
+        search=dataclasses.replace(SearchConfig(), **_runtime_overrides(args)),
+    )
+
+
+def _overlay_runtime(cfg, args):
+    """Overlay explicit runtime flags onto a persisted-index config.
+
+    The shingle width is baked into the stored embeddings and cannot be
+    overridden; warn if the user tries.
+    """
+    if args.shingle_n is not None and args.shingle_n != cfg.shingle.n:
+        print(
+            f"warning: --shingle-n {args.shingle_n} ignored; the loaded "
+            f"index was built with n={cfg.shingle.n}",
+            file=sys.stderr,
+        )
+    over = _runtime_overrides(args)
+    if over:
+        cfg = dataclasses.replace(
+            cfg, search=dataclasses.replace(cfg.search, **over)
+        )
+    return cfg
+
+
+def _parse_script_lines(paths):
+    """Parse one or many script files into one line list.
+
+    Multi-script: line numbers are renumbered globally and each line
+    labeled with its file's stem — the same order and labels
+    ``concat_indexes`` produces, so `matrix --script a.txt b.txt` agrees
+    with a multi-script search's line_no space.
+    """
+    from fandom_search_tpu_torch.data.script_parser import parse_script
+
+    paths = list(paths)
+    if len(paths) == 1:
+        return parse_script(Path(paths[0]).read_text(encoding="utf-8"))
+    names = [Path(p).stem for p in paths]
+    if len(set(names)) != len(names):
+        raise SystemExit(f"error: duplicate script names: {names}")
+    lines, off = [], 0
+    for p, name in zip(paths, names):
+        part = parse_script(Path(p).read_text(encoding="utf-8"))
+        lines.extend(
+            dataclasses.replace(ln, line_no=off + ln.line_no, script=name)
+            for ln in part
+        )
+        off += len(part)
+    return lines
 
 
 def _build_index_from_scripts(paths, cfg):
@@ -63,82 +177,254 @@ def _build_index_from_scripts(paths, cfg):
     return index.lines, index
 
 
-def cmd_search(args) -> int:
-    from fandom_search_tpu_torch.scrape.clean import load_works_dir
-    from fandom_search_tpu_torch.search.engine import SearchEngine, resolve_device
-    from fandom_search_tpu_torch.search.report import write_matches_csv
+def _load_or_build(args):
+    """(cfg, lines, index) from --index or the script files."""
+    if args.index:
+        from fandom_search_tpu_torch.search.persist import load_index
 
-    try:
-        device = resolve_device(args.device)
-    except (RuntimeError, ValueError) as e:
-        print(f"error: {e}", file=sys.stderr)
-        raise SystemExit(2) from e
-    t0 = time.perf_counter()
+        index, cfg = load_index(Path(args.index))
+        return _overlay_runtime(cfg, args), index.lines, index
+    if not args.script:
+        print("error: provide script file(s) or --index", file=sys.stderr)
+        raise SystemExit(2)
     cfg = _pipeline_config(args)
     lines, index = _build_index_from_scripts(args.script, cfg)
-    works = load_works_dir(Path(args.fanworks))
-    t_prep = time.perf_counter() - t0
+    return cfg, lines, index
 
-    t0 = time.perf_counter()
+
+def cmd_index(args) -> int:
+    """Build and persist the script index (decoupled from query)."""
+    from fandom_search_tpu_torch.search.persist import save_index
+
+    cfg = _pipeline_config(args)
+    lines, index = _build_index_from_scripts(args.script, cfg)
+    save_index(index, cfg, Path(args.out))
+    if args.lsh:
+        from fandom_search_tpu_torch.ops.lsh import LSHIndex
+        from fandom_search_tpu_torch.search.persist import save_lsh
+
+        lsh = LSHIndex.build(
+            index.embeddings, cfg.lsh, cfg.shingle,
+            pad_multiple=cfg.search.script_pad_multiple, device=_device(args),
+        )
+        save_lsh(Path(args.out), lsh, cfg.lsh)
+        print(f"saved LSH codes ({cfg.lsh.bits} bits)", file=sys.stderr)
+    print(f"indexed {len(lines)} lines -> {index.num_shingles} shingles "
+          f"at {args.out}", file=sys.stderr)
+    return 0
+
+
+def _build_engine(args, cfg, index, device):
+    """The engine on ``device`` with the flags' prefilter attached."""
+    from fandom_search_tpu_torch.search.engine import SearchEngine
+
     eng = SearchEngine(index, cfg, device=device)
     if args.lsh:
         from fandom_search_tpu_torch.ops.lsh import attach_lsh_prefilter
 
-        attach_lsh_prefilter(eng, cfg.lsh)
+        prebuilt = None
+        if args.index:
+            from fandom_search_tpu_torch.search.persist import load_lsh
+
+            prebuilt = load_lsh(Path(args.index), cfg.lsh)
+        attach_lsh_prefilter(eng, cfg.lsh, lsh=prebuilt)
+    return eng
+
+
+def _run_search(args, cfg, index, works, device):
+    """One search run; returns (rows, stats_dict)."""
+    if args.oracle:
+        from fandom_search_tpu_torch.search.oracle import search_works_oracle
+
+        rows, stats = search_works_oracle(works, index, cfg)
+        return rows, dataclasses.asdict(stats)
+    eng = _build_engine(args, cfg, index, device)
+    if args.resume_dir:
+        from fandom_search_tpu_torch.search.runner import ResumableRunner
+
+        runner = ResumableRunner(eng, Path(args.resume_dir))
+        rows = runner.run(works)
+        return rows, runner.stats_summary()
     rows, stats = eng.search_works(works)
+    return rows, dataclasses.asdict(stats)
+
+
+def cmd_search(args) -> int:
+    from fandom_search_tpu_torch.scrape.clean import load_works_dir
+    from fandom_search_tpu_torch.search.report import (
+        write_matches_csv, write_matches_parquet,
+    )
+
+    device = None if args.oracle else _device(args)
+    t0 = time.perf_counter()
+    cfg, lines, index = _load_or_build(args)
+    t_index = time.perf_counter() - t0
+    works = load_works_dir(Path(args.fanworks))
+    t_prep = time.perf_counter() - t0
+
+    profile_ctx = contextlib.nullcontext()
+    if args.profile:
+        from fandom_search_tpu_torch.utils.profiling import device_trace
+
+        profile_ctx = device_trace(args.profile, device or "cpu")
+    t0 = time.perf_counter()
+    with profile_ctx:
+        rows, stats_d = _run_search(args, cfg, index, works, device)
     t_search = time.perf_counter() - t0
 
-    write_matches_csv(rows, Path(args.out))
+    out = Path(args.out)
+    if args.parquet:
+        write_matches_parquet(rows, out)
+    else:
+        write_matches_csv(rows, out)
     manifest = {
-        "device": str(device),
+        "device": str(device or "cpu"),
         "works": len(works),
         "script_lines": len(lines),
         "script_shingles": index.num_shingles,
         "matches": len(rows),
+        "seconds_index": round(t_index, 3),
         "seconds_prep": round(t_prep, 3),
         "seconds_search": round(t_search, 3),
-        "stats": dataclasses.asdict(stats),
+        "stats": stats_d,
     }
-    if stats.num_query_shingles and t_search:
-        manifest["shingle_pairs_per_sec"] = round(
-            stats.num_query_shingles * index.num_shingles / t_search
-        )
+    qs = stats_d.get("num_query_shingles", 0) or stats_d.get("query_shingles", 0)
+    # resumed runs count every unit's shingles, so their rate divides by
+    # the units' own compute seconds, not this invocation's wall time
+    rate_seconds = stats_d.get("seconds") if stats_d.get("resumable") else t_search
+    if qs and rate_seconds:
+        manifest["shingle_pairs_per_sec"] = round(qs * index.num_shingles / rate_seconds)
+    if args.selfcheck and not args.oracle:
+        from fandom_search_tpu_torch.search.oracle import search_works_oracle
+
+        sample_ids = sorted(works)[: args.selfcheck]
+        sample = {w: works[w] for w in sample_ids}
+        orows, _ = search_works_oracle(sample, index, cfg)
+        key = lambda r: (r.work_id, r.fan_token_start, r.line_no)  # noqa: E731
+        got = {key(r) for r in rows if r.work_id in sample}
+        want = {key(r) for r in orows}
+        manifest["selfcheck"] = {
+            "works": len(sample),
+            "oracle_rows": len(want),
+            "agreement": (
+                round(len(got & want) / len(want | got), 4)
+                if (want or got) else 1.0
+            ),
+        }
     print(json.dumps(manifest, default=str))
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Persistent search service (search/server.py): load or build the
+    index once, keep the engine warm, answer HTTP/JSON queries."""
+    if args.oracle:
+        print("error: serve runs the engine (no --oracle)", file=sys.stderr)
+        return 2
+    from fandom_search_tpu_torch.search.server import SearchService, make_server
+
+    device = _device(args)
+    cfg, lines, index = _load_or_build(args)
+    service = SearchService(_build_engine(args, cfg, index, device), index, cfg)
+    if not args.no_warm:
+        dt = service.warm()
+        print(f"warmup search: {dt:.1f}s", file=sys.stderr)
+    srv = make_server(service, args.host, args.port)
+    print(
+        f"serving {len(lines)} script lines ({index.num_shingles} shingles) "
+        f"on http://{args.host}:{srv.server_address[1]} "
+        f"(GET /health, GET /stats, POST /search)", file=sys.stderr,
+    )
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        print("shutting down", file=sys.stderr)
+    finally:
+        srv.server_close()
+    return 0
+
+
+def cmd_matrix(args) -> int:
+    from fandom_search_tpu_torch.search.report import (
+        aggregate_matrix, read_matches_csv, write_matrix_csv,
+    )
+
+    rows = read_matches_csv(Path(args.matches))
+    lines = _parse_script_lines(args.script) if args.script else None
+    records = aggregate_matrix(rows, lines)
+    write_matrix_csv(records, Path(args.out))
+    if args.html:
+        from fandom_search_tpu_torch.search.heatmap import write_engagement_html
+
+        write_engagement_html(records, Path(args.html), title=args.title)
+    print(f"aggregated {len(rows)} matches over {len(records)} lines"
+          + (f"; heatmap -> {args.html}" if args.html else ""),
+          file=sys.stderr)
     return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="fandom_search_tpu_torch",
-        description="Quote search, PyTorch/CUDA port (search verb).",
+        description="Quote search, PyTorch/CUDA port (index, search, serve, "
+                    "matrix).",
     )
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    ip = sub.add_parser("index", help="build + persist the script index")
+    ip.add_argument("script", nargs="+",
+                    help="script file(s); several build one multi-script "
+                         "index with per-script match attribution")
+    ip.add_argument("-o", "--out", required=True)
+    _add_search_flags(ip)
+    ip.set_defaults(fn=cmd_index)
+
     qp = sub.add_parser("search", help="search the corpus for script quotes")
     qp.add_argument("fanworks", help="dir of cleaned .txt (or .html) works")
-    qp.add_argument("script", nargs="+",
-                    help="source script file(s); several build one index")
+    qp.add_argument("script", nargs="*", default=None,
+                    help="source script file(s); several search one "
+                         "multi-script index in one corpus pass (or use "
+                         "--index)")
     qp.add_argument("-o", "--out", required=True)
-    qp.add_argument("--k", type=int, default=None,
-                    help="top-k per query shingle (default 10)")
-    qp.add_argument("--candidate-threshold", type=float, default=None,
-                    help="min estimated matching words (of n) to keep a "
-                         "candidate (default 3.5)")
-    qp.add_argument("--verify-threshold", type=float, default=None,
-                    help="min normalized alignment score to keep a hit "
-                         "(default 0.35)")
-    qp.add_argument("--sw-variant", default=None, dest="sw_variant",
-                    choices=("fast", "r2", "dyn", "wide", "exitw", "slide"),
-                    help="Smith-Waterman variant (default wide): fast, r2 "
-                         "and dyn run the warp-per-pair kernel K5, wide, "
-                         "exitw and slide the thread-per-pair kernel K4; "
-                         "all give the same scores")
-    qp.add_argument("--lsh", action="store_true",
-                    help="use the LSH prefilter for candidate generation")
-    qp.add_argument("--device", default="cuda",
-                    help="cuda (default; fails without CUDA) or cpu (the "
-                         "kernels' plain PyTorch versions)")
+    qp.add_argument("--parquet", action="store_true")
+    qp.add_argument("--index", default=None,
+                    help="persisted index dir (from `index`)")
+    qp.add_argument("--resume-dir", default=None,
+                    help="work-unit dir for resumable runs")
+    qp.add_argument("--profile", default=None,
+                    help="write a torch.profiler Chrome trace to this dir")
+    _add_search_flags(qp)
     qp.set_defaults(fn=cmd_search)
+
+    vp = sub.add_parser(
+        "serve", help="persistent search service (resident index, warm engine)",
+    )
+    vp.add_argument("script", nargs="*", default=None,
+                    help="source script file(s) (or use --index)")
+    vp.add_argument("--index", default=None,
+                    help="persisted index dir (from `index`)")
+    vp.add_argument("--host", default="127.0.0.1",
+                    help="bind address (default 127.0.0.1)")
+    vp.add_argument("--port", type=int, default=8765)
+    vp.add_argument("--no-warm", action="store_true",
+                    help="skip the warmup search (the first request then "
+                         "builds and loads the kernels)")
+    _add_search_flags(vp)
+    vp.set_defaults(fn=cmd_serve)
+
+    xp = sub.add_parser("matrix", help="per-line engagement aggregation")
+    xp.add_argument("matches", help="matches CSV from `search`")
+    xp.add_argument("-o", "--out", required=True)
+    xp.add_argument("--script", nargs="+", default=None,
+                    help="script file(s) for line text/speaker columns "
+                         "(same order as the search)")
+    xp.add_argument("--html", default=None, metavar="PATH",
+                    help="also write a self-contained engagement heatmap "
+                         "(the Fan Engagement Meter view)")
+    xp.add_argument("--title", default="Fan engagement",
+                    help="heatmap page title")
+    xp.set_defaults(fn=cmd_matrix)
     return p
 
 

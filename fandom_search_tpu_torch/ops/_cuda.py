@@ -39,6 +39,8 @@ _SIGNATURES = {
     "fs_embed": [_P, _P, _P, _L, _I, _I, _P],
     # q, s, vals, idx, nq, ns_valid, dim, k, min_keep_i, inv_dim, stream
     "fs_topk": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _P],
+    # the same arguments as fs_topk (min_keep_i >= 1)
+    "fs_topk_rows": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _P],
     # x, out, block_totals, n, op (0 add / 1 max), stream
     "fs_scan": [_P, _P, _P, _L, _I, _P],
     # a, b, len_a, len_b, out, bsz, la, lb, match, mismatch, gap, stream

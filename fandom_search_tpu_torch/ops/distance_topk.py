@@ -1,12 +1,20 @@
-"""K2 fused int8 distance + top-k; counterpart of fandom_search_tpu/ops/distance_topk.py.
+"""K2 and K7 fused int8 distance + top-k; counterpart of fandom_search_tpu/ops/distance_topk.py.
 
-``topk_dot`` launches ``csrc/distance_topk.cu`` on CUDA tensors and runs
+``topk_dot`` launches a CUDA kernel on CUDA tensors and runs
 ``topk_dot_plain`` on CPU tensors.  Both return, per query row, the
 exact top-k of dot(q, s) / dim over script rows [0, ns_valid), ties to
 the lowest column; empty slots are (NEG_INF, 0).  With a finite
 ``min_keep`` only scores >= min_keep enter, so a row may hold padding
-where the JAX kernel would hold sub-threshold entries — entries at or
-above the threshold are identical (the engine never reads the others).
+where the JAX insert kernel would hold sub-threshold entries — entries
+at or above the threshold are identical (the engine never reads the
+others).  The JAX rows kernel keeps only entries >= min_keep too, so
+there every slot is equal.
+
+``merge`` takes the JAX op's four names.  "insert", "insertloop" and
+"rebuild" (one output, three TPU merge strategies) launch K2,
+``csrc/distance_topk.cu``; "rows" launches K7,
+``csrc/distance_topk_rows.cu``, when ``min_keep`` is at least 1/dim,
+and K2 below that, as the JAX op sends "rows" to "insertloop" there.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ _KEEP_FLOOR = -(1 << 30)
 _KEY_EMPTY = -(1 << 62)
 _KERNEL_DIM = 128
 _KERNEL_MAX_K = 32
+_MERGES = ("insert", "insertloop", "rebuild", "rows")
 
 
 def min_keep_int(min_keep: float, dim: int) -> int:
@@ -83,12 +92,21 @@ def topk_dot_plain(q: torch.Tensor, s: torch.Tensor, ns_valid: int, k: int,
 
 
 def topk_dot(q: torch.Tensor, s: torch.Tensor, ns_valid: int, k: int, *,
-             min_keep: float = -float("inf")) -> tuple[torch.Tensor, torch.Tensor]:
+             min_keep: float = -float("inf"),
+             merge: str = "insert") -> tuple[torch.Tensor, torch.Tensor]:
     """int8 q [NQ, dim], int8 s [NS, dim] -> (f32 vals [NQ, k], int32 idx [NQ, k]).
 
     ``min_keep`` (in dot/dim units) declares that the caller discards
     scores below it; leave it at -inf for the exact full top-k.
+    ``merge="rows"`` with ``min_keep >= 1/dim`` runs K7 (counted in
+    ``topk_dot.launches_rows``); every other call runs K2 (counted in
+    ``topk_dot.launches``).  Both compute the same function.
     """
+    if merge not in _MERGES:
+        raise ValueError(
+            f"merge must be 'insert', 'insertloop', 'rebuild' or "
+            f"'rows', got {merge!r}"
+        )
     _cuda.require(q.dtype == torch.int8 and q.dim() == 2,
                   f"q must be int8 [NQ, dim], got {q.dtype} {tuple(q.shape)}")
     _cuda.require(s.dtype == torch.int8 and s.dim() == 2 and s.shape[1] == q.shape[1],
@@ -112,15 +130,20 @@ def topk_dot(q: torch.Tensor, s: torch.Tensor, ns_valid: int, k: int, *,
     idx = torch.empty((nq, k), dtype=torch.int32, device=q.device)
     if nq == 0:
         return vals, idx
-    lib = _cuda.library()
-    rc = lib.fs_topk(
+    rows = merge == "rows" and keep_i >= 1
+    name = "fs_topk_rows" if rows else "fs_topk"
+    rc = getattr(_cuda.library(), name)(
         q.data_ptr(), s.data_ptr(), vals.data_ptr(), idx.data_ptr(),
         nq, int(ns_valid), dim, k, keep_i, 1.0 / dim,
         _cuda.stream_ptr(q.device),
     )
-    _cuda.check(rc, "fs_topk")
-    topk_dot.launches += 1
+    _cuda.check(rc, name)
+    if rows:
+        topk_dot.launches_rows += 1
+    else:
+        topk_dot.launches += 1
     return vals, idx
 
 
-topk_dot.launches = 0
+topk_dot.launches = 0       # K2
+topk_dot.launches_rows = 0  # K7

@@ -92,12 +92,32 @@ class LSHIndex:
         ``pad_multiple`` rows (at least one multiple), like the JAX
         package's ``pad_rows``."""
         ns = s_emb.shape[0]
-        ns_pad = max(pad_multiple, -(-ns // pad_multiple) * pad_multiple)
-        s_pad = np.zeros((ns_pad, shingle_cfg.dim), dtype=np.int8)
+        s_pad = np.zeros((round_up_pad(ns, pad_multiple), shingle_cfg.dim), dtype=np.int8)
         s_pad[:ns] = s_emb
         proj = torch.from_numpy(make_projection(cfg, shingle_cfg.dim)).to(device)
         codes = encode(torch.from_numpy(s_pad).to(device), proj)
         return cls(projection=proj, codes_t=codes.T.contiguous(), ns_valid=int(ns))
+
+    @classmethod
+    def from_arrays(cls, projection: np.ndarray, codes_t: np.ndarray,
+                    ns_valid: int) -> "LSHIndex":
+        """An index on the CPU from saved arrays (int8 projection [D, bits],
+        uint32 codes [W, NS_pad], the JAX package's dtypes); ``to`` moves
+        it to a device."""
+        proj = np.ascontiguousarray(projection, dtype=np.int8)
+        codes = np.ascontiguousarray(codes_t, dtype=np.uint32).view(np.int32)
+        return cls(projection=torch.from_numpy(proj), codes_t=torch.from_numpy(codes),
+                   ns_valid=int(ns_valid))
+
+    def to(self, device) -> "LSHIndex":
+        return LSHIndex(projection=self.projection.to(device),
+                        codes_t=self.codes_t.to(device), ns_valid=self.ns_valid)
+
+
+def round_up_pad(n: int, multiple: int) -> int:
+    """Rows after zero-padding n rows to a multiple of ``multiple`` (at
+    least one multiple), like the JAX package's ``pad_rows``."""
+    return max(multiple, -(-n // multiple) * multiple)
 
 
 def _unpack_pm1(codes: torch.Tensor) -> torch.Tensor:
@@ -247,11 +267,16 @@ def lsh_topk(q_emb: torch.Tensor, lsh: LSHIndex, s_emb: torch.Tensor, k: int,
     return rerank_exact(q_emb, s_emb, idx1, vals1 > NEG_INF / 2, k, dim)
 
 
-def attach_lsh_prefilter(engine, cfg: LSHConfig) -> None:
+def attach_lsh_prefilter(engine, cfg: LSHConfig, lsh: LSHIndex | None = None) -> None:
     """Swap a SearchEngine's candidate stage for the LSH pipeline: K1
     embed -> encode -> K6 -> rerank -> threshold compaction, on the
     engine's device.  The rest of the engine's device step (dedup,
-    windows, verification) stays as it is."""
+    windows, verification) stays as it is.
+
+    ``lsh`` may be a prebuilt index (e.g. ``search/persist.py``'s
+    ``load_lsh``); it must match the engine's script index and pad
+    multiple, which is checked by shape, and is moved to the engine's
+    device.  Without it the codes are built here."""
     from fandom_search_tpu_torch.ops.embed import embed_shingles
     from fandom_search_tpu_torch.search.engine import compact_candidates
 
@@ -263,9 +288,22 @@ def attach_lsh_prefilter(engine, cfg: LSHConfig) -> None:
         )
     scfg, xcfg = engine.cfg.shingle, engine.cfg.search
     dix = engine._dix
-    lsh = LSHIndex.build(engine.index.embeddings, cfg, scfg,
-                         pad_multiple=xcfg.script_pad_multiple,
-                         device=engine.device)
+    if lsh is not None:
+        ns_pad = round_up_pad(engine.index.num_shingles, xcfg.script_pad_multiple)
+        if (int(lsh.ns_valid) != engine.index.num_shingles
+                or tuple(lsh.codes_t.shape) != (cfg.bits // 32, ns_pad)):
+            raise ValueError(
+                "persisted LSH index does not match the script index "
+                f"(codes {tuple(lsh.codes_t.shape)}, ns_valid {lsh.ns_valid} "
+                f"vs expected ({cfg.bits // 32}, {ns_pad}), "
+                f"{engine.index.num_shingles}) — rebuild with "
+                "`python -m fandom_search_tpu_torch index --lsh`"
+            )
+        lsh = lsh.to(engine.device)
+    else:
+        lsh = LSHIndex.build(engine.index.embeddings, cfg, scfg,
+                             pad_multiple=xcfg.script_pad_multiple,
+                             device=engine.device)
     engine.lsh = lsh
     s_emb_f = dix.s_emb.float()
     ns_true = engine.index.num_shingles

@@ -243,8 +243,9 @@ def test_port_file_imports_nothing_of_jax(rel):
 
 def test_package_imports_without_jax():
     """With jax and the JAX package unimportable, the port and its
-    engine, ops (LSH included), CLI and corpus generator load, and no
-    module of fandom_search_tpu is loaded."""
+    engine, ops (LSH included), persistence, server, runner, report,
+    heatmap, profiler, CLI and corpus generator load, and no module of
+    fandom_search_tpu is loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -253,6 +254,11 @@ def test_package_imports_without_jax():
         "import fandom_search_tpu_torch.search.engine\n"
         "import fandom_search_tpu_torch.search.oracle\n"
         "import fandom_search_tpu_torch.search.report\n"
+        "import fandom_search_tpu_torch.search.heatmap\n"
+        "import fandom_search_tpu_torch.search.persist\n"
+        "import fandom_search_tpu_torch.search.runner\n"
+        "import fandom_search_tpu_torch.search.server\n"
+        "import fandom_search_tpu_torch.utils.profiling\n"
         "import fandom_search_tpu_torch.ops.embed\n"
         "import fandom_search_tpu_torch.ops.distance_topk\n"
         "import fandom_search_tpu_torch.ops.scan\n"
