@@ -8,14 +8,23 @@ and time:
 
 1. device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them.
-2. build: compiles fandom_search_tpu_torch/csrc/*.cu with nvcc.
+2. build: compiles fandom_search_tpu_torch/csrc/*.cu with nvcc, and
+   builds and loads the native tokenizer from the port's own
+   native/fastingest.cpp (fails if it does not load).
 3. kernels: K1-K7 against their plain PyTorch versions on the card, at
    the shapes of the paths, on inputs from the end-to-end world; exact
    equality is required (tolerance 0: every output is an integer or one
    f32 division of integers).  Prints warm times of both, the least
    time the card could take (bound) and, where one PyTorch call
-   computes the same function, that call's time.  K7 (merge="rows")
-   runs on K2's inputs and is timed beside K2.
+   computes the same function, that call's time.  K3: the scan (both
+   ops; n 1, 1023, 1025, 2^20, 2^20 + 37) and the compaction (0%, 1%,
+   100% set; size below, at and above the count), each call one kernel
+   and no memset in the profiler, with CUDA-event and profiler (device)
+   times beside torch.cumsum's.  K6: both tensor-core routes (b1, s8)
+   on 2^14 rows exact and gated, over bits 32-2048 / R 1-1024, and on
+   the full 2^20-row gated batch, every slot; prints the filled slots
+   per row, the share of tiles holding an entry and the TOP/s.  K7
+   (merge="rows") runs on K2's inputs and is timed beside K2.
 4. exact end to end: SearchEngine.search_works over the world — a
    2,000-line script (~20k shingles) against 10,000 works of 2,000 words
    with 3 planted quotes each (~20M query shingles, ~20 batches of
@@ -248,7 +257,6 @@ def kernel_checks(engine, works, seed: int):
         min_keep_int, topk_dot, topk_dot_plain,
     )
     from fandom_search_tpu_torch.ops.embed import embed_shingles, embed_shingles_plain
-    from fandom_search_tpu_torch.ops.scan import scan1d_i32, scan1d_i32_plain
     from fandom_search_tpu_torch.ops.smith_waterman import (
         sw_lane, sw_normalized_plain, sw_wide,
     )
@@ -358,29 +366,7 @@ def kernel_checks(engine, works, seed: int):
     )
     done("K7 distance_topk_rows", t0, f"equal to plain in every slot; {res['topk_dot_rows']}")
 
-    # K3, both ops, at 2^20 and 2^20 + 37
-    t0 = phase("K3 scan")
-    err = 0
-    for n in (1 << 20, (1 << 20) + 37):
-        x = torch.from_numpy(rng.integers(-1000, 1000, size=n).astype(np.int32)).to(dev)
-        for op in ("add", "max"):
-            g = scan1d_i32(x, op)
-            sync()
-            w = scan1d_i32_plain(x, op)
-            sync()
-            e = int((g.long() - w.long()).abs().max())
-            check(torch.equal(g, w), f"K3 {op} at n={n} differs: max |err| {e}")
-            err = max(err, e)
-    mask = (torch.from_numpy(rng.random(1 << 20) < 0.01).to(dev)).int()
-    res["scan1d_i32"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: scan1d_i32(mask), 50),
-        plain_ms=cuda_ms(lambda: scan1d_i32_plain(mask), 50),
-        library_ms=cuda_ms(lambda: torch.cumsum(mask, 0, dtype=torch.int32), 50),
-        shape=f"N={mask.numel()} add",
-        **bound(mask.numel() * 8, mask.numel(), CUDA_CORE_OPS_S),
-    )
-    done("K3 scan", t0, str(res["scan1d_i32"]))
+    res["scan1d_i32"] = scan_check(dev, rng)
 
     # K4 on 8192 length-sorted 64 x 64 pairs with len-0 and ragged rows
     t0 = phase("K4 smith_waterman")
@@ -449,6 +435,100 @@ def kernel_checks(engine, works, seed: int):
     return res
 
 
+def device_events(fn, reps: int = 1):
+    """The kernel and memset events of ``reps`` warm calls of ``fn``,
+    from a torch.profiler Chrome trace (durations in us)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    memsets = [e for e in events if e.get("cat") == "gpu_memset"]
+    return kernels, memsets
+
+
+def one_kernel_ms(fn, what: str, reps: int = 50) -> float:
+    """Device ms per call of ``fn``, which must launch exactly one kernel
+    and no memset per call."""
+    kernels, memsets = device_events(fn, 1)
+    check(len(kernels) == 1 and not memsets,
+          f"one {what} call ran {[e.get('name') for e in kernels]} kernels and "
+          f"{len(memsets)} memsets, not one kernel")
+    kernels, memsets = device_events(fn, reps)
+    check(len(kernels) == reps and not memsets,
+          f"{reps} {what} calls ran {len(kernels)} kernels and {len(memsets)} memsets")
+    return sum(float(e["dur"]) for e in kernels) / reps / 1e3
+
+
+def scan_check(dev, rng):
+    """K3: the scan (both ops, small and ragged sizes, wrap-around) and the
+    compaction (0%, 1% and 100% set; size below, at and above the count)
+    against their plain versions; one kernel per call in the profiler;
+    event, device, plain and torch.cumsum times at 2^20."""
+    import numpy as np
+    import torch
+
+    from fandom_search_tpu_torch.ops.scan import (
+        nonzero_compact, nonzero_compact_plain, scan1d_i32, scan1d_i32_plain,
+    )
+
+    t0 = phase("K3 scan")
+    err = 0
+    for n in (1, 1023, 1025, 1 << 20, (1 << 20) + 37):
+        for lo, hi in ((-1000, 1000), (-(1 << 31), 1 << 31)):   # the second wraps
+            x = torch.from_numpy(rng.integers(lo, hi, size=n).astype(np.int32)).to(dev)
+            for op in ("add", "max"):
+                g = scan1d_i32(x, op)
+                torch.cuda.synchronize()
+                w = scan1d_i32_plain(x, op)
+                e = int((g.long() - w.long()).abs().max())
+                check(torch.equal(g, w), f"K3 {op} at n={n} differs: max |err| {e}")
+                err = max(err, e)
+    cases = 0
+    for n in (1 << 20, (1 << 20) + 37, 1, 5000):
+        for frac in (0.0, 0.01, 1.0):
+            m = torch.from_numpy(rng.random(n) < frac).to(dev)
+            count = int(m.sum())
+            for size in sorted({max(1, count // 2), max(1, count), count + 1000, 1 << 17}):
+                g = nonzero_compact(m, size)
+                torch.cuda.synchronize()
+                w = nonzero_compact_plain(m, size)
+                check(torch.equal(g, w), f"K3 compaction differs at n={n} set={frac} "
+                                         f"count={count} size={size}")
+                cases += 1
+    print(f"[K3 scan] scan: both ops at n 1/1023/1025/2^20/2^20+37 equal; compaction: "
+          f"{cases} cases (0/1/100% set, size below/at/above the count) equal", flush=True)
+    mask_b = torch.from_numpy(rng.random(1 << 20) < 0.01).to(dev)
+    mask = mask_b.int()
+    size = 1 << 17
+    out = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: scan1d_i32(mask), 50),
+        device_ms=one_kernel_ms(lambda: scan1d_i32(mask), "scan1d_i32"),
+        plain_ms=cuda_ms(lambda: scan1d_i32_plain(mask), 50),
+        library_ms=cuda_ms(lambda: torch.cumsum(mask, 0, dtype=torch.int32), 50),
+        compact_ms=cuda_ms(lambda: nonzero_compact(mask_b, size), 50),
+        compact_device_ms=one_kernel_ms(lambda: nonzero_compact(mask_b, size),
+                                        "nonzero_compact"),
+        compact_plain_ms=cuda_ms(lambda: nonzero_compact_plain(mask_b, size), 50),
+        shape=f"N={mask.numel()} add; compaction N={mask.numel()} 1% set size={size}",
+        **bound(mask.numel() * 8, mask.numel(), CUDA_CORE_OPS_S),
+    )
+    lib_kernels, _ = device_events(lambda: torch.cumsum(mask, 0, dtype=torch.int32), 50)
+    out["library_device_ms"] = sum(float(e["dur"]) for e in lib_kernels) / 50 / 1e3
+    done("K3 scan", t0, str(out))
+    return out
+
+
 def hamming_check(engine, q_emb):
     """K6 on the codes of the first batch against the script's codes, at
     the default LSHConfig (1024 bits, rerank 256)."""
@@ -456,7 +536,7 @@ def hamming_check(engine, q_emb):
 
     from fandom_search_tpu_torch import LSHConfig
     from fandom_search_tpu_torch.ops.lsh import (
-        SENT, LSHIndex, coarse_sim_threshold, encode, hamming_topk,
+        DEFAULT_MMA, SENT, LSHIndex, coarse_sim_threshold, encode, hamming_topk,
         hamming_topk_plain, rerank_exact,
     )
 
@@ -473,23 +553,25 @@ def hamming_check(engine, q_emb):
     rows = 1 << 14
     qs = q_codes[:rows].contiguous()
     err = 0.0
+    # both tensor-core routes (s8 for every bits, b1 where bits % 256 == 0)
+    routes = ("s8", "b1")
     for mode, mks in (("exact", SENT), ("gated", keep)):
-        kv, ki = hamming_topk(qs, lsh.codes_t, ns, r, bits, min_keep_sim=mks)
-        torch.cuda.synchronize()
         pv, pi = hamming_topk_plain(qs, lsh.codes_t, ns, r, bits, mks)
-        torch.cuda.synchronize()
         filled = int((pv > -1e38).sum())
-        check(torch.equal(kv, pv) and torch.equal(ki, pi),
-              f"K6 {mode} mode differs from plain on {rows} rows")
         check(filled > 0, f"K6 {mode} mode: no entry to compare")
-        err = max(err, float((kv - pv).abs().max()))
+        for mma in routes:
+            kv, ki = hamming_topk(qs, lsh.codes_t, ns, r, bits, min_keep_sim=mks, mma=mma)
+            torch.cuda.synchronize()
+            check(torch.equal(kv, pv) and torch.equal(ki, pi),
+                  f"K6 ({mma}) {mode} mode differs from plain on {rows} rows")
+            err = max(err, float((kv - pv).abs().max()))
         print(f"[K6 hamming_topk] {mode} (min_keep_sim {mks}): {rows} rows "
-              f"equal in every slot, {filled} filled", flush=True)
+              f"equal in every slot on {'/'.join(routes)}, {filled} filled", flush=True)
     # the range the wrapper takes: bits 32..2048, R 1..1024, a ragged
     # ns_valid, none valid and fewer valid than R; codes with many ties
     gen = torch.Generator(device=engine.device).manual_seed(7)
     for bits2, r2, ns2 in ((32, 1, 2900), (256, 100, 2900), (2048, 1024, 2900),
-                           (2048, 1024, 500), (1024, 256, 0)):
+                           (2048, 1024, 500), (1024, 256, 0), (768, 40, 2999)):
         words = bits2 // 32
         st = torch.randint(-(1 << 31), 1 << 31, (words, 3000), generator=gen,
                            dtype=torch.int64, device=engine.device).int()
@@ -498,18 +580,52 @@ def hamming_check(engine, q_emb):
                            dtype=torch.int64, device=engine.device).int()
         q2[:50] = st[:, 200:250].T
         for mks in (SENT, bits2 // 4):
-            kv, ki = hamming_topk(q2, st, ns2, r2, bits2, min_keep_sim=mks)
             pv, pi = hamming_topk_plain(q2, st, ns2, r2, bits2, mks)
-            check(torch.equal(kv, pv) and torch.equal(ki, pi),
-                  f"K6 differs from plain at bits {bits2} R {r2} ns {ns2} "
-                  f"min_keep_sim {mks}")
-    print("[K6 hamming_topk] bits 32-2048, R 1-1024, ns_valid 0/500/2900: "
-          "equal in every slot", flush=True)
+            for mma in routes if bits2 % 256 == 0 else ("s8",):
+                kv, ki = hamming_topk(q2, st, ns2, r2, bits2, min_keep_sim=mks, mma=mma)
+                check(torch.equal(kv, pv) and torch.equal(ki, pi),
+                      f"K6 ({mma}) differs from plain at bits {bits2} R {r2} ns {ns2} "
+                      f"min_keep_sim {mks}")
+    print("[K6 hamming_topk] bits 32-2048, R 1-1024, ns_valid 0/500/2900/2999: "
+          "equal in every slot (b1 where bits % 256 == 0)", flush=True)
+    # the full gated batch, every slot
     nq = q_codes.shape[0]
+    pv, pi = hamming_topk_plain(q_codes, lsh.codes_t, ns, r, bits, keep)
+    for mma in routes:
+        kv, ki = hamming_topk(q_codes, lsh.codes_t, ns, r, bits, min_keep_sim=keep, mma=mma)
+        torch.cuda.synchronize()
+        check(torch.equal(kv, pv) and torch.equal(ki, pi),
+              f"K6 ({mma}) gated mode differs from plain on the full {nq}-row batch")
+    filled = kv > -1e38
+    per_row = filled.sum(dim=1)
+    # (64-row block, 128-column tile) pairs holding an entry that passed
+    # the gate: the tiles pass 2 would rescore (a floor where a row fills R)
+    pairs = (torch.arange(nq, device=kv.device)[:, None] // 64 * 1_000_000
+             + ki.long() // 128)[filled]
+    n_tiles = -(-nq // 64) * -(-ns // 128)
+    flagged = int(torch.unique(pairs).numel())
+    print(f"[K6 hamming_topk] gated: all {nq} rows equal in every slot on "
+          f"{'/'.join(routes)}; filled slots per row: mean "
+          f"{float(per_row.float().mean()):.4f}, max {int(per_row.max())}, rows with any "
+          f"{int((per_row > 0).sum())}, rows over 32 {int((per_row > 32).sum())}; tiles "
+          f"with an entry {flagged} of {n_tiles} ({flagged / n_tiles:.6f})", flush=True)
+    del pv, pi, pairs
+    # the two routes in turns: s8, b1, b1, s8
+    times = {m: [] for m in routes}
+    for mma in routes + routes[::-1]:
+        times[mma].append(cuda_ms(lambda: hamming_topk(
+            q_codes, lsh.codes_t, ns, r, bits, min_keep_sim=keep, mma=mma), 3))
+    route_ms = {m: min(v) for m, v in times.items()}
     out = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: hamming_topk(q_codes, lsh.codes_t, ns, r, bits,
-                                        min_keep_sim=keep), 3),
+        ms=route_ms[DEFAULT_MMA],
+        mma=DEFAULT_MMA,
+        route_ms=times,
+        ms_exact_2_14=cuda_ms(lambda: hamming_topk(qs, lsh.codes_t, ns, r, bits), 3),
+        ms_gated_2_14=cuda_ms(lambda: hamming_topk(qs, lsh.codes_t, ns, r, bits,
+                                                   min_keep_sim=keep), 3),
+        filled_per_row=float(per_row.float().mean()),
+        entry_tile_share=flagged / n_tiles,
         plain_ms=cuda_ms(lambda: hamming_topk_plain(qs, lsh.codes_t, ns, r,
                                                     bits, keep), 1),
         library_ms=None,
@@ -519,9 +635,9 @@ def hamming_check(engine, q_emb):
         **bound(q_codes.numel() * 4 + lsh.codes_t.numel() * 4 + nq * r * 8,
                 2 * nq * ns * bits, INT8_OPS_S),
     )
+    out["tops"] = {m: 2 * nq * ns * bits / (t / 1e3) / 1e12 for m, t in route_ms.items()}
     # the LSH candidate stage's other parts on the same batch (PyTorch
     # ops, no kernel of their own), so its time can be attributed
-    kv, ki = hamming_topk(q_codes, lsh.codes_t, ns, r, bits, min_keep_sim=keep)
     s_f = engine._dix.s_emb.float()
     print(json.dumps({"lsh_stage_ms_per_batch": {
         "rows": nq,
@@ -916,7 +1032,12 @@ def main(argv=None) -> int:
     t0 = phase("build")
     build_s = _cuda.build(force=True)
     _cuda.library()
-    done("build", t0, f"nvcc {build_s:.1f}s")
+    from fandom_search_tpu_torch.data import fast_tokenizer
+
+    check(fast_tokenizer.get_lib() is not None,
+          f"the native tokenizer did not build or load from {fast_tokenizer._SRC}")
+    done("build", t0, f"nvcc {build_s:.1f}s; native tokenizer loaded from "
+                      f"{fast_tokenizer._SRC.relative_to(ROOT)}")
 
     from fandom_search_tpu_torch.search.engine import SearchEngine
 

@@ -1,9 +1,10 @@
 """ctypes binding for the native tokenizer; counterpart of fandom_search_tpu/data/fast_tokenizer.py.
 
-The C++ source is the JAX package's ``native/fastingest.cpp``, read by
-path and compiled with g++ into this package's ``build/`` directory.
-Without a compiler the pure-Python tokenizer runs instead; the two are
-byte-for-byte equivalent.
+The C++ source is this package's own copy of the JAX package's
+``native/fastingest.cpp`` (``native/fastingest.cpp``, held equal to the
+original by the tests), compiled with g++ into this package's ``build/``
+directory.  Without a compiler the pure-Python tokenizer runs instead
+(``get_lib()`` is then None); the two are byte-for-byte equivalent.
 """
 
 from __future__ import annotations
@@ -28,10 +29,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _lib_failed = False
 
-_SRC = (
-    Path(__file__).resolve().parents[2]
-    / "fandom_search_tpu" / "native" / "fastingest.cpp"
-)
+_SRC = Path(__file__).resolve().parents[1] / "native" / "fastingest.cpp"
 _BUILD = Path(__file__).resolve().parents[1] / "build"
 
 

@@ -7,8 +7,8 @@ Two-stage candidate generation that replaces the exact distance top-k
     of a random +-1 projection (``encode``), packed 32 to a word, and
     ``hamming_topk`` keeps the ``rerank`` best script columns per query
     by similarity bits - 2 * popcount(q XOR s).  On CUDA tensors it
-    launches ``csrc/hamming_topk.cu`` (K6); on CPU tensors it runs
-    ``hamming_topk_plain``.
+    launches ``csrc/hamming_topk.cu`` (K6, scores on the tensor cores);
+    on CPU tensors it runs ``hamming_topk_plain``.
   stage 2 — ``rerank_exact`` re-scores those columns with the exact
     int8 dot and keeps the top k, as the JAX package's plain XLA code
     does (PyTorch ops here too: a gather, a batched f32 product, a
@@ -154,9 +154,16 @@ def hamming_topk_plain(q_codes: torch.Tensor, codes_t: torch.Tensor,
     return vals, idx
 
 
+_MMA_ROUTES = {"s8": 0, "b1": 1}
+# the K6 route the engine takes where bits allow it: on an H100 the 1-bit
+# product ran the engine's gated 2^20-row batch in a third of the s8
+# route's time (PERF.md, chip_smoke.py's K6 phase)
+DEFAULT_MMA = "b1"
+
+
 def hamming_topk(q_codes: torch.Tensor, codes_t: torch.Tensor, ns_valid: int,
-                 rerank: int, bits: int, *,
-                 min_keep_sim: int = SENT) -> tuple[torch.Tensor, torch.Tensor]:
+                 rerank: int, bits: int, *, min_keep_sim: int = SENT,
+                 mma: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """int32 codes q [NQ, W] against codes_t [W, NS_pad] -> (f32 sim
     [NQ, R], int32 column [NQ, R]).
 
@@ -167,7 +174,14 @@ def hamming_topk(q_codes: torch.Tensor, codes_t: torch.Tensor, ns_valid: int,
     min_keep_sim enter, so a row holds padding where the JAX kernel,
     whose gate works per tile, may hold sub-threshold entries; its
     entries at or above the threshold are exactly these.
+
+    ``mma`` picks the CUDA kernel's tensor-core product: "s8" (0/1 bytes,
+    any bits) or "b1" (1-bit AND-popc on the packed words, bits a
+    multiple of 256); both give the same outputs.  None takes
+    ``DEFAULT_MMA`` where bits allow it, else "s8".
     """
+    if mma is None:
+        mma = DEFAULT_MMA if bits % 256 == 0 else "s8"
     _cuda.require(bits > 0 and bits % 32 == 0,
                   f"bits ({bits}) must be a positive multiple of 32")
     words = bits // 32
@@ -182,6 +196,9 @@ def hamming_topk(q_codes: torch.Tensor, codes_t: torch.Tensor, ns_valid: int,
     _cuda.require(0 <= ns_valid <= codes_t.shape[1],
                   f"ns_valid ({ns_valid}) must lie in [0, {codes_t.shape[1]}]")
     _cuda.require(rerank >= 1, f"rerank ({rerank}) must be >= 1")
+    _cuda.require(mma in _MMA_ROUTES and (mma != "b1" or bits % 256 == 0),
+                  f"mma must be 's8', or 'b1' with bits a multiple of 256; got "
+                  f"{mma!r} at bits {bits}")
     if _cuda.on_cpu(q_codes, codes_t):
         return hamming_topk_plain(q_codes, codes_t, ns_valid, rerank, bits,
                                   min_keep_sim)
@@ -202,7 +219,7 @@ def hamming_topk(q_codes: torch.Tensor, codes_t: torch.Tensor, ns_valid: int,
     rc = lib.fs_hamming_topk(
         q_codes.data_ptr(), codes_t.data_ptr(), vals.data_ptr(), idx.data_ptr(),
         nq, words, codes_t.shape[1], int(ns_valid), rerank, bits, h_max,
-        _cuda.stream_ptr(q_codes.device),
+        _MMA_ROUTES[mma], _cuda.stream_ptr(q_codes.device),
     )
     _cuda.check(rc, "fs_hamming_topk")
     hamming_topk.launches += 1

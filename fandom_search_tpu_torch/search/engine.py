@@ -5,9 +5,9 @@ exactly as the JAX engine does, then runs ONE ``fused_step`` per batch
 on ``device``: the candidate stage -> dedup sort -> verify windows ->
 length sort -> Smith-Waterman (K4 or K5) -> compaction of the verified
 hits.  The candidate stage is ``exact_candidates`` (K1 embed -> K2
-distance top-k -> threshold compaction with K3) unless
-``ops.lsh.attach_lsh_prefilter`` swaps in the LSH one (K1 -> K6 ->
-rerank -> the same compaction).  The host pulls one f32
+distance top-k -> threshold compaction; every compaction is one K3
+launch) unless ``ops.lsh.attach_lsh_prefilter`` swaps in the LSH one
+(K1 -> K6 -> rerank -> the same compaction).  The host pulls one f32
 [5, verify_budget] array per batch, retries a batch whose fixed budgets
 overflowed, and chains the hits into MatchRows.  Inside the device step
 nothing syncs with the host: no nonzero, no boolean-mask indexing, no
@@ -31,7 +31,7 @@ from fandom_search_tpu_torch.data.hashing import derive_sign_mults
 from fandom_search_tpu_torch.data.tokenizer import Tokenized
 from fandom_search_tpu_torch.ops.distance_topk import topk_dot
 from fandom_search_tpu_torch.ops.embed import embed_shingles
-from fandom_search_tpu_torch.ops.scan import scan1d_i32
+from fandom_search_tpu_torch.ops.scan import nonzero_compact
 from fandom_search_tpu_torch.ops.smith_waterman import sw_normalized
 from fandom_search_tpu_torch.search.chain import chain_hits_arrays
 from fandom_search_tpu_torch.search.index import ScriptIndex, index_from_numpy
@@ -212,23 +212,6 @@ def _f32(x: float) -> float:
     computes it in.  (A scalar, not a device tensor: creating one would
     cost a host-to-device copy that waits for the stream.)"""
     return float(np.float32(x))
-
-
-def nonzero_compact(mask: torch.Tensor, size: int) -> torch.Tensor:
-    """Ascending indices of True entries, -1 padded to ``size`` (entries
-    past ``size`` drop; callers detect overflow from a separate count).
-    K3's inclusive scan gives each selected entry its slot; a scatter
-    into [size + N] sends every other entry to a distinct slot past
-    ``size``, so destinations are unique and no sync is needed."""
-    m = mask.reshape(-1)
-    n = m.shape[0]
-    csum = scan1d_i32(m.to(torch.int32))
-    src = torch.arange(n, dtype=torch.int32, device=m.device)
-    sel = m & (csum <= size)
-    dest = torch.where(sel, csum - 1, size + src)
-    out = torch.full((size + n,), -1, dtype=torch.int32, device=m.device)
-    out.scatter_(0, dest.long(), src)
-    return out[:size]
 
 
 def compact_candidates(vals, idx, threshold: float, ns: int, k: int,

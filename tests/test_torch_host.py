@@ -7,6 +7,9 @@ comparison is exact (np.array_equal / ==).
 
 import ast
 import dataclasses
+import os
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -277,6 +280,74 @@ def test_package_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     assert eval(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_fastingest_copy_matches():
+    """The port's native tokenizer source is the JAX package's, byte for
+    byte."""
+    port = ROOT / "fandom_search_tpu_torch" / "native" / "fastingest.cpp"
+    assert port.read_bytes() == (ROOT / "fandom_search_tpu" / "native"
+                                 / "fastingest.cpp").read_bytes()
+
+
+# a path into the JAX package's tree: its name as a whole path component
+_JAX_TREE = re.compile(r"(^|[/\\])fandom_search_tpu($|[/\\])")
+
+
+def _code_strings(path):
+    """String constants of a module outside its docstrings."""
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)):
+                docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+@pytest.mark.parametrize("rel", [p for p in PORT_FILES if p != "chip_smoke.py"])
+def test_port_file_names_no_path_into_the_jax_package(rel):
+    """No module of the port builds a path into fandom_search_tpu/ (the
+    AST import guard cannot see a file read by path)."""
+    bad = [v for v in _code_strings(ROOT / rel) if _JAX_TREE.search(v)]
+    assert not bad, bad
+
+
+def test_port_native_sources_include_nothing_of_the_jax_package():
+    srcs = [f for ext in ("*.cu", "*.cuh", "*.cpp", "*.h")
+            for f in (ROOT / "fandom_search_tpu_torch").rglob(ext)]
+    assert any(f.name == "fastingest.cpp" for f in srcs)
+    for f in srcs:
+        for line in f.read_text(encoding="utf-8").splitlines():
+            if line.lstrip().startswith("#include"):
+                assert "fandom_search_tpu" not in line, (f, line)
+
+
+def test_native_tokenizer_builds_from_the_port_alone(tmp_path):
+    """A copy of the port with no JAX package beside it builds and loads
+    its native tokenizer from its own source."""
+    shutil.copytree(ROOT / "fandom_search_tpu_torch", tmp_path / "fandom_search_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['fandom_search_tpu'] = None\n"
+        "from fandom_search_tpu_torch.data import fast_tokenizer as f\n"
+        "assert f.get_lib() is not None\n"
+        "print(f._SRC)\n"
+        "print(f.fast_tokenize('Hello, world').hashes.tolist())\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(tmp_path)})
+    assert res.returncode == 0, res.stderr
+    src, hashes = res.stdout.strip().splitlines()[-2:]
+    assert Path(src).resolve().is_relative_to(tmp_path.resolve())
+    assert eval(hashes) == jtokenize("Hello, world").hashes.tolist()
 
 
 CONFIG_CLASSES = ("ShingleConfig", "SearchConfig", "LSHConfig",

@@ -210,6 +210,8 @@ def fake_cuda(monkeypatch):
 
 @pytest.mark.parametrize("mks,h_max", [(lsh.SENT, 1024), (229, 397), (1025, -1)])
 def test_hamming_wrapper_launches_k6(fake_cuda, mks, h_max):
+    """One call of the kernel with the shape, the gate and the default
+    tensor-core route (b1 at 1,024 bits)."""
     q = torch.zeros((5, 32), dtype=torch.int32)
     st = torch.zeros((32, 2048), dtype=torch.int32)
     before = lsh.hamming_topk.launches
@@ -217,8 +219,41 @@ def test_hamming_wrapper_launches_k6(fake_cuda, mks, h_max):
     assert v.shape == i.shape == (5, 256)
     (name, args), = fake_cuda.calls
     assert name == "fs_hamming_topk"
-    assert args[4:11] == (5, 32, 2048, 2000, 256, 1024, h_max)
+    assert args[4:13] == (5, 32, 2048, 2000, 256, 1024, h_max, 1, 0)
     assert lsh.hamming_topk.launches == before + 1
+
+
+@pytest.mark.parametrize("bits,mma,route", [(1024, "s8", 0), (1024, "b1", 1),
+                                            (256, None, 1), (96, None, 0),
+                                            (2048, None, 1), (800, "s8", 0)])
+def test_hamming_wrapper_routes(fake_cuda, bits, mma, route):
+    """The route the kernel is asked for: the default takes b1 where bits
+    is a multiple of 256 and s8 elsewhere; an explicit route is kept."""
+    w = bits // 32
+    q = torch.zeros((3, w), dtype=torch.int32)
+    st = torch.zeros((w, 600), dtype=torch.int32)
+    lsh.hamming_topk(q, st, 600, 16, bits, mma=mma)
+    (name, args), = fake_cuda.calls
+    assert args[11] == route
+
+
+def test_hamming_wrapper_refuses_bad_routes(fake_cuda):
+    q = torch.zeros((3, 3), dtype=torch.int32)
+    st = torch.zeros((3, 600), dtype=torch.int32)
+    with pytest.raises(ValueError, match="mma"):
+        lsh.hamming_topk(q, st, 600, 16, 96, mma="b1")
+    with pytest.raises(ValueError, match="mma"):
+        lsh.hamming_topk(q, st, 600, 16, 96, mma="int4")
+    assert not fake_cuda.calls
+
+
+@pytest.mark.parametrize("mma", ["s8", "b1"])
+def test_plain_hamming_ignores_the_route(rng, mma):
+    """On the CPU both routes run the plain version: the same slots."""
+    q, st = _world(rng, 256)
+    want = _jax_hamming(q, st, 1000, 32, 256)
+    v, i = lsh.hamming_topk(_t(q), _t(st), 1000, 32, 256, mma=mma)
+    assert np.array_equal(v.numpy(), want[0]) and np.array_equal(i.numpy(), want[1])
 
 
 def test_hamming_wrapper_rejects_bad_arguments(monkeypatch):

@@ -71,3 +71,91 @@ def test_compact_candidates_matches_jax(rng, max_out):
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(w))
     assert int(got[3]) > 4  # the smallest budget overflows
+
+
+# ragged sizes around the CUDA kernel's 4096-element chunk; sizes above
+# n, below the count (overflow) and all-true masks
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 12289])
+@pytest.mark.parametrize("frac,size", [(0.3, 5000), (1.0, 64), (1.0, 20000),
+                                       (0.02, 1), (0.0, 3)])
+def test_nonzero_compact_ragged_matches_jax(rng, n, frac, size):
+    mask = rng.random(n) < frac
+    got = nonzero_compact(torch.from_numpy(mask), size).numpy()
+    want = np.asarray(jax_nonzero_compact(jnp.asarray(mask), size))
+    assert got.dtype == np.int32 and got.shape == (size,)
+    assert np.array_equal(got, want)
+
+
+class _FakeLib:
+    """Records the kernel entry points called; every launch succeeds."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    """CPU tensors take the kernel route, into a fake library; the plain
+    versions raise, so a "CUDA" tensor never reaches them."""
+    from fandom_search_tpu_torch.ops import _cuda
+    from fandom_search_tpu_torch.ops import scan as scan_mod
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor took the plain route")
+
+    lib = _FakeLib()
+    monkeypatch.setattr(_cuda, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(_cuda, "library", lambda: lib)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(scan_mod, "scan1d_i32_plain", plain)
+    monkeypatch.setattr(scan_mod, "nonzero_compact_plain", plain)
+    return lib
+
+
+@pytest.mark.parametrize("op,code", [("add", 0), ("max", 1)])
+def test_scan_wrapper_is_one_launch(fake_cuda, op, code):
+    x = torch.zeros(5000, dtype=torch.int32)
+    before = scan1d_i32.launches
+    out = scan1d_i32(x, op)
+    assert out.shape == (5000,) and out.dtype == torch.int32
+    (name, args), = fake_cuda.calls
+    assert name == "fs_scan"
+    assert args[0] == x.data_ptr() and args[1] == out.data_ptr()
+    assert args[3:] == (5000, code, 4096, 0)
+    assert scan1d_i32.launches == before + 1
+    # the scratch words are reused, with no reset, by the next call
+    scan1d_i32(x, op)
+    assert fake_cuda.calls[1][1][2] == args[2]
+
+
+def test_compact_wrapper_is_one_launch(fake_cuda):
+    mask = torch.zeros((300, 10), dtype=torch.bool)
+    before = scan1d_i32.launches
+    out = nonzero_compact(mask, 777)
+    assert out.shape == (777,) and out.dtype == torch.int32
+    (name, args), = fake_cuda.calls
+    assert name == "fs_compact"
+    assert args[0] == mask.data_ptr() and args[1] == out.data_ptr()
+    assert args[3:] == (3000, 777, 4096, 0)
+    assert scan1d_i32.launches == before + 1
+
+
+def test_wrappers_refuse_what_the_kernel_does_not_take(fake_cuda):
+    with pytest.raises(ValueError, match="bool"):
+        nonzero_compact(torch.zeros(8, dtype=torch.int32), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        nonzero_compact(torch.zeros((4, 4), dtype=torch.bool).T, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        scan1d_i32(torch.zeros(8, dtype=torch.int32)[::2])
+    with pytest.raises(ValueError, match="size"):
+        nonzero_compact(torch.zeros(8, dtype=torch.bool), -1)
+    # nothing to compute: no launch
+    assert nonzero_compact(torch.zeros(8, dtype=torch.bool), 0).shape == (0,)
+    assert scan1d_i32(torch.zeros(0, dtype=torch.int32)).shape == (0,)
+    assert not fake_cuda.calls
