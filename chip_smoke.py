@@ -23,8 +23,14 @@ and time:
    times beside torch.cumsum's.  K6: both tensor-core routes (b1, s8)
    on 2^14 rows exact and gated, over bits 32-2048 / R 1-1024, and on
    the full 2^20-row gated batch, every slot; prints the filled slots
-   per row, the share of tiles holding an entry and the TOP/s.  K7
-   (merge="rows") runs on K2's inputs and is timed beside K2.
+   per row, the share of tiles holding an entry and the TOP/s.  K2 and
+   K7 (merge="rows"), both on the int8 tensor cores (the check fails if
+   either source still calls __dp4a): every case of the edge world in
+   utils/topk_cases.py (ns_valid 0 to 3001 around step and tile edges,
+   k 1-32, exact and gated, ties across edges, identical padding rows),
+   the engine shape gated, 2^14 rows exact at k 10 and 32, and a padding
+   batch (the first batch with its last 30% of tokens zero), every slot
+   against the plain version; K2 and K7 timed in turns, with TOP/s.
 4. exact end to end: SearchEngine.search_works over the world — a
    2,000-line script (~20k shingles) against 10,000 works of 2,000 words
    with 3 planted quotes each (~20M query shingles, ~20 batches of
@@ -253,9 +259,6 @@ def kernel_checks(engine, works, seed: int):
     import numpy as np
     import torch
 
-    from fandom_search_tpu_torch.ops.distance_topk import (
-        min_keep_int, topk_dot, topk_dot_plain,
-    )
     from fandom_search_tpu_torch.ops.embed import embed_shingles, embed_shingles_plain
     from fandom_search_tpu_torch.ops.smith_waterman import (
         sw_lane, sw_normalized_plain, sw_wide,
@@ -295,76 +298,7 @@ def kernel_checks(engine, works, seed: int):
     )
     done("K1 embed", t0, f"T={tok.shape[0]} M={got.shape[0]} {res['embed_shingles']}")
 
-    # K2 engine mode on the same 2^20 queries against the whole script
-    t0 = phase("K2 distance_topk")
-    q = got
-    s = dix.s_emb
-    ns, k = s.shape[0], cfg.search.k
-    thr = cfg.search.candidate_threshold
-    keep_i = min_keep_int(thr, cfg.shingle.dim)
-    kv, ki = topk_dot(q, s, ns, k, min_keep=thr)
-    sync()
-    pv, pi = topk_dot_plain(q, s, ns, k, keep_i)
-    sync()
-    above = pv >= thr
-    check(torch.equal(kv[above], pv[above]) and torch.equal(ki[above], pi[above]),
-          "K2 engine mode: entries at or above the threshold differ")
-    check(not bool(((kv >= thr) & ~above).any()),
-          "K2 engine mode: kernel holds an above-threshold entry the plain version lacks")
-    check(torch.equal(kv, pv) and torch.equal(ki, pi),
-          "K2 engine mode: padding below the threshold differs")
-    n_above = int(above.sum())
-    check(n_above > 0, "K2 engine mode: no entry above the threshold to compare")
-    err = float((kv[above] - pv[above]).abs().max())
-    # exact mode on a 2^14-row slice: every slot compared
-    qs = q[: 1 << 14].contiguous()
-    ev, ei = topk_dot(qs, s, ns, k)
-    sync()
-    xv, xi = topk_dot_plain(qs, s, ns, k, min_keep_int(-float("inf"), cfg.shingle.dim))
-    sync()
-    check(torch.equal(ev, xv) and torch.equal(ei, xi), "K2 exact mode differs")
-    err = max(err, float((ev - xv).abs().max()))
-    # the kernel's other register top-k size (16 < k <= 32), exact mode
-    k32 = 32
-    ev, ei = topk_dot(qs[: 1 << 12], s, ns, k32)
-    sync()
-    xv, xi = topk_dot_plain(qs[: 1 << 12], s, ns, k32,
-                            min_keep_int(-float("inf"), cfg.shingle.dim))
-    sync()
-    check(torch.equal(ev, xv) and torch.equal(ei, xi), "K2 exact mode at k=32 differs")
-    err = max(err, float((ev - xv).abs().max()))
-    res["topk_dot"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: topk_dot(q, s, ns, k, min_keep=thr), 3),
-        plain_ms=cuda_ms(lambda: topk_dot_plain(q, s, ns, k, keep_i), 1),
-        library_ms=None,
-        shape=f"NQ={q.shape[0]} NS={ns} k={k} min_keep={thr}",
-        **bound(q.numel() + s.numel() + q.shape[0] * k * 8,
-                2 * q.shape[0] * ns * q.shape[1], INT8_OPS_S),
-    )
-    done("K2 distance_topk", t0,
-         f"NQ={q.shape[0]} NS={ns} k={k} above_thr={n_above} {res['topk_dot']}")
-
-    # K7 (merge="rows") on K2's inputs: every slot equal to the plain
-    # version, so equal to K2 at and above the threshold too
-    t0 = phase("K7 distance_topk_rows")
-    rv, ri = topk_dot(q, s, ns, k, min_keep=thr, merge="rows")
-    sync()
-    check(torch.equal(rv, pv) and torch.equal(ri, pi),
-          "K7 differs from the plain version at the engine shape")
-    check(torch.equal(rv[above], kv[above]) and torch.equal(ri[above], ki[above]),
-          "K7 differs from K2 at or above the threshold")
-    res["topk_dot_rows"] = dict(
-        max_abs_err=float((rv[above] - pv[above]).abs().max()),
-        ms=cuda_ms(lambda: topk_dot(q, s, ns, k, min_keep=thr, merge="rows"), 3),
-        k2_ms_beside=cuda_ms(lambda: topk_dot(q, s, ns, k, min_keep=thr), 3),
-        plain_ms=cuda_ms(lambda: topk_dot_plain(q, s, ns, k, keep_i), 1),
-        library_ms=None,
-        shape=f"NQ={q.shape[0]} NS={ns} k={k} min_keep={thr}",
-        **bound(q.numel() + s.numel() + q.shape[0] * k * 8,
-                2 * q.shape[0] * ns * q.shape[1], INT8_OPS_S),
-    )
-    done("K7 distance_topk_rows", t0, f"equal to plain in every slot; {res['topk_dot_rows']}")
+    res.update(topk_check(engine, tok, got))
 
     res["scan1d_i32"] = scan_check(dev, rng)
 
@@ -433,6 +367,118 @@ def kernel_checks(engine, works, seed: int):
 
     res["hamming_topk"] = hamming_check(engine, got)
     return res
+
+
+def topk_check(engine, tok, q):
+    """K2 and K7 against their plain version in every slot: the edge world
+    of ``utils/topk_cases.py`` (every ns_valid, k and mode), the engine
+    shape gated, 2^14 rows exact at k 10 and 32, and a padding batch (the
+    first batch with its last 30% of tokens zero, as the engine pads a
+    partial batch); warm times, TOP/s and the bound."""
+    import torch
+
+    from fandom_search_tpu_torch.ops.distance_topk import (
+        min_keep_int, topk_dot, topk_dot_plain,
+    )
+    from fandom_search_tpu_torch.ops.embed import embed_shingles
+    from fandom_search_tpu_torch.utils import topk_cases as tc
+
+    for src in ("distance_topk.cu", "distance_topk_rows.cu"):
+        check("dp4a" not in (ROOT / PKG / "csrc" / src).read_text(),
+              f"csrc/{src} still calls __dp4a: K2 and K7 score on the tensor cores")
+    dev = q.device
+    cfg = engine.cfg
+    dim = cfg.shingle.dim
+    inf = float("inf")
+
+    def same(got, want):
+        return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    def err(got, want):
+        ok = want[0] > -1e38
+        return float((got[0][ok] - want[0][ok]).abs().max()) if bool(ok.any()) else 0.0
+
+    t0 = phase("K2/K7 edge cases")
+    eq, es = (torch.from_numpy(x).to(dev) for x in tc.edge_world())
+    cases = 0
+    for ns in tc.NS_VALID:
+        for k in tc.KS:
+            for mk in (-inf, tc.MIN_KEEP):
+                want = topk_dot_plain(eq, es, ns, k, min_keep_int(mk, dim))
+                # below min_keep 1/dim "rows" is K2's exact top-k
+                for merge in ("insert", "rows") if mk > 0 else ("insert",):
+                    got = topk_dot(eq, es, ns, k, min_keep=mk, merge=merge)
+                    torch.cuda.synchronize()
+                    check(same(got, want), f"{'K7' if merge == 'rows' else 'K2'} differs "
+                                           f"from plain on the edge world at ns_valid {ns} "
+                                           f"k {k} min_keep {mk}")
+                    cases += 1
+    done("K2/K7 edge cases", t0, f"{cases} cases (ns_valid {tc.NS_VALID}, k {tc.KS}, "
+                                 f"exact and gated) equal to plain in every slot")
+
+    t0 = phase("K2 distance_topk")
+    s = engine._dix.s_emb
+    ns, k = s.shape[0], cfg.search.k
+    thr = cfg.search.candidate_threshold
+    keep_i = min_keep_int(thr, dim)
+    want = topk_dot_plain(q, s, ns, k, keep_i)
+    got = topk_dot(q, s, ns, k, min_keep=thr)
+    torch.cuda.synchronize()
+    check(same(got, want), "K2 engine mode differs from plain")
+    n_above = int((want[0] >= thr).sum())
+    check(n_above > 0, "K2 engine mode: no entry above the threshold to compare")
+    e2 = err(got, want)
+    rows_got = topk_dot(q, s, ns, k, min_keep=thr, merge="rows")
+    torch.cuda.synchronize()
+    check(same(rows_got, want), "K7 differs from plain at the engine shape")
+    e7 = err(rows_got, want)
+    # exact mode on 2^14 rows at k 10 and 32
+    qs = q[: 1 << 14].contiguous()
+    for kk in (k, 32):
+        want_x = topk_dot_plain(qs, s, ns, kk, min_keep_int(-inf, dim))
+        got_x = topk_dot(qs, s, ns, kk)
+        torch.cuda.synchronize()
+        check(same(got_x, want_x), f"K2 exact mode differs from plain at k={kk}")
+        e2 = max(e2, err(got_x, want_x))
+    # the padding batch
+    tok_pad = tok.clone()
+    tok_pad[int(0.7 * tok.shape[0]):] = 0
+    qp = embed_shingles(tok_pad, engine._dix.mults)
+    want_p = topk_dot_plain(qp, s, ns, k, keep_i)
+    n_above_pad = int((want_p[0] >= thr).sum())
+    for merge in ("insert", "rows"):
+        got_p = topk_dot(qp, s, ns, k, min_keep=thr, merge=merge)
+        torch.cuda.synchronize()
+        check(same(got_p, want_p), f"{'K7' if merge == 'rows' else 'K2'} differs from "
+                                   f"plain on the padding batch")
+        if merge == "rows":
+            e7 = max(e7, err(got_p, want_p))
+        else:
+            e2 = max(e2, err(got_p, want_p))
+    # the two designs in turns: K2, K7, K7, K2; then the padding batch
+    times = {"insert": [], "rows": []}
+    for merge in ("insert", "rows", "rows", "insert"):
+        times[merge].append(cuda_ms(lambda: topk_dot(q, s, ns, k, min_keep=thr, merge=merge), 3))
+    pad = {m: cuda_ms(lambda: topk_dot(qp, s, ns, k, min_keep=thr, merge=m), 3)
+           for m in ("insert", "rows")}
+    plain_ms = cuda_ms(lambda: topk_dot_plain(q, s, ns, k, keep_i), 1)
+    ops = 2 * q.shape[0] * ns * dim
+    shared = dict(
+        plain_ms=plain_ms, library_ms=None,
+        shape=f"NQ={q.shape[0]} NS={ns} k={k} min_keep={thr}",
+        above_thr=n_above, pad_above_thr=n_above_pad,
+        **bound(q.numel() + s.numel() + q.shape[0] * k * 8, ops, INT8_OPS_S),
+    )
+    out = {}
+    for key, merge, e in (("topk_dot", "insert", e2), ("topk_dot_rows", "rows", e7)):
+        ms = min(times[merge])
+        out[key] = dict(max_abs_err=e, ms=ms, runs_ms=times[merge], pad_ms=pad[merge],
+                        tops=ops / (ms / 1e3) / 1e12,
+                        int8_peak_share=ops / (ms / 1e3) / INT8_OPS_S, **shared)
+    done("K2 distance_topk", t0, f"engine shape, 2^14 exact at k {k}/32 and the padding "
+                                 f"batch equal to plain in every slot, K2 and K7; "
+                                 f"K2 {out['topk_dot']}; K7 {out['topk_dot_rows']}")
+    return out
 
 
 def device_events(fn, reps: int = 1):

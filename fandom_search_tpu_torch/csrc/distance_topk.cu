@@ -1,5 +1,5 @@
 // K2 — fused int8 distance + running top-k with the min_keep gate,
-// written for Hopper (sm_90a).
+// written for Hopper (sm_90a), its scores on the int8 tensor cores.
 //
 // Replaces: fandom_search_tpu/ops/distance_topk.py, _topk_kernel with
 // merge="insert" (launched by topk_dot_pallas).  For each query row it
@@ -9,142 +9,203 @@
 // dim), or a floor far below any score for the exact full top-k); an
 // empty slot is (-FLT_MAX, 0).
 //
-// Bound on this card: int8 multiply-adds, NQ * NS * dim per call (2^20 x
-// ~20k x 128 per engine batch).  The outputs (NQ * k * 8 B) and the
-// script rows (NS * dim B, re-read from L2 by every block) are small
+// Bound on this card: the int8 products, 2 * NQ * NS * dim operations at
+// 1,979 TOP/s (2.58 ms for a 2^20-row batch against 19,033 script rows).
+// The outputs (NQ * k * 8 B) and the script (NS * dim B) are small
 // beside that.
 //
-// Design: one thread owns one query row and holds its dim int8 values as
-// dim/4 int32 words in registers.  A block of 128 rows walks the script
-// rows in ascending order, staged 64 rows at a time through shared
-// memory (every thread reads the same word: a broadcast), and computes
-// each dot with __dp4a.  Each thread keeps its own sorted top-k in
-// registers (k <= KCAP, unrolled so the arrays never leave registers).
-// A column enters only when its score exceeds max(kth score,
-// min_keep_i - 1); it goes in after every entry of equal score, and
-// since columns arrive in ascending order the lowest column wins every
-// tie without the TPU kernel's packed (score, column) field, its column
-// chunking or its (8, 128) tiles.  Tensor-core mma / wgmma is later work.
+// Design.  Scores come from the shared producer in int8_tiles.cuh:
+// mma.sync m16n8k32 s8, 256 query rows a block (64 a warp, A fragments
+// in registers for the whole walk), script tiles through a 3-slot
+// cp.async ring.  The ring tile is read by every block, 10 GB of L2
+// reads per 2^20-row batch.  Per 32-column step the epilogue is:
+// - Common path: a thread's 8 scores of each of its 8 rows reduce to a
+//   row maximum with 3-way integer max (4 instructions a row), one
+//   compare with the row's gate, and one __any_sync for the warp: about
+//   0.7 integer instructions a score.  When no score of the warp's 64
+//   rows reaches its row's gate, nothing touches shared memory.
+// - Otherwise every score >= its row's gate goes to the row's list in
+//   shared memory (one entry per column of the step, so it cannot
+//   overflow), packed score * 32 + (31 - column in the step).  Each row
+//   whose list is not empty is then merged into its top-k by the warp
+//   (lane i holds slot i), on 64-bit keys score * 2^32 + (2^32 - 1 -
+//   column), so equal scores rank the lower column first whatever order
+//   the accumulator layout delivers them in: one entry (the common case)
+//   is inserted with a ballot and a shuffle; more are sorted over the
+//   lanes (bitonic) and merged with the top-k in one bitonic merge.
+// - A row's gate is min_keep_i until it holds k entries, then its k-th
+//   score + 1: later steps hold only higher columns, which lose every
+//   tie.  The gate moves only between steps.  Sparse real rows merge
+//   almost never; rows that pass often (the zero tokens padding a
+//   partial batch, the exact top-k) merge early and then stop at a high
+//   gate, with no second pass and no fallback.
+// Rows past nq have a gate of INT_MAX; columns past ns_valid score
+// INT_MIN.
 #include <cfloat>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "int8_tiles.cuh"
+
 namespace {
 
-constexpr int kRows = 128;  // query rows per block, one per thread
-constexpr int kTile = 64;   // script rows per shared-memory stage
+using namespace tiles;
 
-template <int KCAP>
-__device__ __forceinline__ void insert(int (&sc)[KCAP], int (&col)[KCAP],
-                                       int k, int s, int c, int& kth) {
-  // Entries are sorted by score, descending; equal scores keep arrival
-  // (= column) order.  Walking from the tail, every entry scoring below
-  // s moves down one slot and s lands after the last entry >= s.
-#pragma unroll
-  for (int i = KCAP - 1; i >= 0; --i) {
-    if (i < k) {
-      const bool shift = (i > 0) && (sc[i > 0 ? i - 1 : 0] < s);
-      if (shift) {
-        sc[i] = sc[i - 1 >= 0 ? i - 1 : 0];
-        col[i] = col[i - 1 >= 0 ? i - 1 : 0];
-      } else if (sc[i] < s) {
-        sc[i] = s;
-        col[i] = c;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < KCAP; ++i) {
-    if (i == k - 1) kth = sc[i];
-  }
+constexpr long long kEmpty = LLONG_MIN;
+
+__device__ __forceinline__ long long make_key(int score, int col) {
+  return static_cast<long long>(
+      (static_cast<unsigned long long>(static_cast<long long>(score)) << 32) |
+      (0xffffffffu - static_cast<unsigned>(col)));
 }
 
-template <int DW, int KCAP>
-__global__ void __launch_bounds__(kRows)
-topk_kernel(const int8_t* __restrict__ q,  // [nq, 4 * DW]
-            const int8_t* __restrict__ s,  // [>= ns, 4 * DW]
+__device__ __forceinline__ int key_score(long long key) { return static_cast<int>(key >> 32); }
+
+__device__ __forceinline__ int key_col(long long key) {
+  return static_cast<int>(0xffffffffu - static_cast<unsigned>(key & 0xffffffffll));
+}
+
+size_t smem_bytes(int k) {
+  return static_cast<size_t>(kRingBytes) + sizeof(int) * kBlockRows * kSubCols +
+         sizeof(long long) * kBlockRows * k + 2 * sizeof(int) * kBlockRows;
+}
+
+// Merge one row's list (n >= 1 entries of the step starting at c0) into
+// its top-k (k keys, best first); returns the row's new gate.
+__device__ __forceinline__ int merge_row(long long* __restrict__ top, const int* __restrict__ list,
+                                         int n, int k, int c0, int min_keep_i, int lane) {
+  long long b = kEmpty;
+  if (lane < n) {
+    const int p = list[lane];
+    b = make_key(p >> 5, c0 + 31 - (p & 31));
+  }
+  long long a = lane < k ? top[lane] : kEmpty;
+  if (n == 1) {
+    // one entry (the common case): insert it after every better key; it
+    // passed the gate, so it beats the k-th
+    const long long e = __shfl_sync(kFull, b, 0);
+    const int p = __popc(__ballot_sync(kFull, lane < k && a > e));
+    const long long up = __shfl_up_sync(kFull, a, 1);
+    if (lane >= p) a = lane == p ? e : up;
+  } else {
+    // the list, descending
+#pragma unroll
+    for (int w = 2; w <= 32; w <<= 1) {
+#pragma unroll
+      for (int j = w >> 1; j > 0; j >>= 1) {
+        const long long o = __shfl_xor_sync(kFull, b, j);
+        const bool keep_max = ((lane & w) == 0) == ((lane & j) == 0);
+        b = keep_max ? (o > b ? o : b) : (o < b ? o : b);
+      }
+    }
+    // the 32 best of top ++ list, a bitonic sequence; then sorted
+    const long long rev = __shfl_sync(kFull, b, 31 - lane);
+    a = a > rev ? a : rev;
+#pragma unroll
+    for (int j = 16; j > 0; j >>= 1) {
+      const long long o = __shfl_xor_sync(kFull, a, j);
+      a = (lane & j) == 0 ? (o > a ? o : a) : (o < a ? o : a);
+    }
+  }
+  if (lane < k) top[lane] = a;
+  const long long kth = __shfl_sync(kFull, a, k - 1);
+  return kth == kEmpty ? min_keep_i : max(min_keep_i, key_score(kth) + 1);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+topk_kernel(const int8_t* __restrict__ q,  // [nq, 128]
+            const int8_t* __restrict__ s,  // [>= ns, 128]
             float* __restrict__ vals,      // [nq, k]
             int* __restrict__ idx,         // [nq, k]
             long long nq, int ns, int k, int min_keep_i, float inv_dim) {
-  constexpr int kVec = DW / 4;  // int4 vectors per row
-  __shared__ int4 stile[kTile * kVec];
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  uint8_t* ring = smem;
+  // this warp's rows: lists [64][32], top-k keys [64][k], counts, gates
+  int* list = reinterpret_cast<int*>(smem + kRingBytes) + warp * kWarpRows * kSubCols;
+  long long* top = reinterpret_cast<long long*>(
+                       smem + kRingBytes + sizeof(int) * kBlockRows * kSubCols) +
+                   warp * kWarpRows * k;
+  int* cnt = reinterpret_cast<int*>(smem + kRingBytes + sizeof(int) * kBlockRows * kSubCols +
+                                    sizeof(long long) * kBlockRows * k) +
+             warp * kWarpRows;
+  int* gate_s = cnt + kBlockRows;
 
-  const long long row = static_cast<long long>(blockIdx.x) * kRows + threadIdx.x;
-  const bool active = row < nq;
-
-  int qw[DW];
-  if (active) {
-    const int4* qr = reinterpret_cast<const int4*>(q) + row * kVec;
-#pragma unroll
-    for (int c = 0; c < kVec; ++c) {
-      const int4 v = qr[c];
-      qw[4 * c] = v.x;
-      qw[4 * c + 1] = v.y;
-      qw[4 * c + 2] = v.z;
-      qw[4 * c + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < DW; ++c) qw[c] = 0;
+  const long long r0 = static_cast<long long>(blockIdx.x) * kBlockRows + warp * kWarpRows;
+  for (int e = lane; e < kWarpRows * k; e += 32) top[e] = kEmpty;
+  for (int r = lane; r < kWarpRows; r += 32) {
+    cnt[r] = 0;
+    gate_s[r] = r0 + r < nq ? min_keep_i : INT_MAX;
   }
-
-  int sc[KCAP];
-  int col[KCAP];
+  __syncwarp();
+  int gate[kMT][2];  // the gates of this thread's 8 rows
 #pragma unroll
-  for (int i = 0; i < KCAP; ++i) {
-    sc[i] = INT_MIN;  // empty slot: below every real score
-    col[i] = 0;
+  for (int mt = 0; mt < kMT; ++mt) {
+    gate[mt][0] = gate_s[mt * 16 + (lane >> 2)];
+    gate[mt][1] = gate_s[mt * 16 + (lane >> 2) + 8];
   }
-  int kth = INT_MIN;
-  const int floor_gate = min_keep_i - 1;
-  int gate = floor_gate;  // a column enters iff its score > gate
+  AFrag a;
+  load_a(a, q, nq, r0, lane);
 
-  const int4* s4 = reinterpret_cast<const int4*>(s);
-  for (int t0 = 0; t0 < ns; t0 += kTile) {
-    const int rows = min(kTile, ns - t0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < rows * kVec; i += kRows) {
-      stile[i] = s4[static_cast<long long>(t0) * kVec + i];
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < rows; ++j) {
-      const int4* sr = stile + j * kVec;
-      int dot = 0;
+  walk_script(ring, s, ns, a, lane, [&](Acc& acc, int c0) {
+    bool pass = false;
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        const int4 v = sr[c];
-        dot = __dp4a(qw[4 * c], v.x, dot);
-        dot = __dp4a(qw[4 * c + 1], v.y, dot);
-        dot = __dp4a(qw[4 * c + 2], v.z, dot);
-        dot = __dp4a(qw[4 * c + 3], v.w, dot);
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) pass |= row_max(acc, mt, hi) >= gate[mt][hi];
+    if (!__any_sync(kFull, pass)) return;
+    // the step's passing scores to their rows' lists
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int r = mt * 16 + (lane >> 2) + 8 * hi;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int v = acc[mt][nt][2 * hi + e];
+            if (v >= gate[mt][hi]) {
+              const int p = atomicAdd(&cnt[r], 1);
+              list[r * kSubCols + p] = v * 32 + (31 - (nt * 8 + 2 * (lane & 3) + e));
+            }
+          }
       }
-      if (dot > gate) {
-        insert<KCAP>(sc, col, k, dot, t0 + j, kth);
-        gate = max(kth, floor_gate);
+    __syncwarp();
+    // merge every row with entries, lowest row first
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      unsigned todo = __ballot_sync(kFull, cnt[half * 32 + lane] > 0);
+      while (todo) {
+        const int r = half * 32 + __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int g = merge_row(top + r * k, list + r * kSubCols, cnt[r], k, c0, min_keep_i, lane);
+        __syncwarp();
+        if (lane == 0) {
+          cnt[r] = 0;
+          gate_s[r] = g;
+        }
       }
     }
-  }
-  if (!active) return;
+    __syncwarp();
 #pragma unroll
-  for (int i = 0; i < KCAP; ++i) {
-    if (i < k) {
-      const bool empty = sc[i] == INT_MIN;
-      vals[row * k + i] = empty ? -FLT_MAX : static_cast<float>(sc[i]) * inv_dim;
-      idx[row * k + i] = empty ? 0 : col[i];
+    for (int mt = 0; mt < kMT; ++mt) {
+      gate[mt][0] = gate_s[mt * 16 + (lane >> 2)];
+      gate[mt][1] = gate_s[mt * 16 + (lane >> 2) + 8];
     }
-  }
-}
+  });
 
-template <int DW, int KCAP>
-void launch(const void* q, const void* s, void* vals, void* idx, long long nq,
-            int ns, int k, int min_keep_i, float inv_dim, cudaStream_t stream) {
-  const long long blocks = (nq + kRows - 1) / kRows;
-  topk_kernel<DW, KCAP><<<static_cast<unsigned>(blocks), kRows, 0, stream>>>(
-      static_cast<const int8_t*>(q), static_cast<const int8_t*>(s),
-      static_cast<float*>(vals), static_cast<int*>(idx), nq, ns, k, min_keep_i,
-      inv_dim);
+  // the warp's rows are contiguous in the outputs
+  __syncwarp();
+  const long long rows = nq - r0 < kWarpRows ? nq - r0 : kWarpRows;
+  for (long long e = lane; e < rows * k; e += 32) {
+    const long long key = top[e];
+    const bool empty = key == kEmpty;
+    vals[r0 * k + e] = empty ? -FLT_MAX : static_cast<float>(key_score(key)) * inv_dim;
+    idx[r0 * k + e] = empty ? 0 : key_col(key);
+  }
 }
 
 }  // namespace
@@ -156,9 +217,15 @@ void launch(const void* q, const void* s, void* vals, void* idx, long long nq,
 extern "C" int fs_topk(const void* q, const void* s, void* vals, void* idx,
                        long long nq, int ns_valid, int dim, int k,
                        int min_keep_i, float inv_dim, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dim != 128 || k < 1 || k > 32) return static_cast<int>(cudaErrorInvalidValue);
-  if (k <= 16) launch<32, 16>(q, s, vals, idx, nq, ns_valid, k, min_keep_i, inv_dim, st);
-  else launch<32, 32>(q, s, vals, idx, nq, ns_valid, k, min_keep_i, inv_dim, st);
+  if (dim != kDim || k < 1 || k > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(k);
+  const cudaError_t e = cudaFuncSetAttribute(
+      topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks = (nq + kBlockRows - 1) / kBlockRows;
+  topk_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(s), static_cast<float*>(vals),
+      static_cast<int*>(idx), nq, ns_valid, k, min_keep_i, inv_dim);
   return static_cast<int>(cudaGetLastError());
 }

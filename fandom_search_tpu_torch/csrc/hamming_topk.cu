@@ -66,6 +66,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "int8_tiles.cuh"  // ldsm_x4, mma_s8, cp_async16, cp_commit, cp_wait
+
 namespace {
 
 constexpr int kBN = 128;          // script columns per tile
@@ -83,22 +85,6 @@ __device__ __forceinline__ uint32_t spread4(uint32_t nib) {
   return (nib * 0x00204081u) & 0x01010101u;
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // the same product on 1-bit operands: popc(a AND b) over k = 256
 __device__ __forceinline__ void mma_b1(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                        uint32_t b1) {
@@ -113,23 +99,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   const int n = valid ? 4 : 0;  // 0: zero-fill, nothing read
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// Wait until at most n (0..2) of this thread's copy groups are pending.
-__device__ __forceinline__ void cp_wait(int n) {
-  if (n >= 2) {
-    asm volatile("cp.async.wait_group 2;\n" ::);
-  } else if (n == 1) {
-    asm volatile("cp.async.wait_group 1;\n" ::);
-  } else {
-    asm volatile("cp.async.wait_group 0;\n" ::);
-  }
 }
 
 __host__ __device__ __forceinline__ size_t up16(size_t x) { return (x + 15) & ~size_t(15); }

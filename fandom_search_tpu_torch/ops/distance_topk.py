@@ -15,6 +15,17 @@ there every slot is equal.
 ``csrc/distance_topk.cu``; "rows" launches K7,
 ``csrc/distance_topk_rows.cu``, when ``min_keep`` is at least 1/dim,
 and K2 below that, as the JAX op sends "rows" to "insertloop" there.
+
+Both kernels score on the int8 tensor cores (``mma.sync`` m16n8k32)
+through one producer, ``csrc/int8_tiles.cuh``: 256 query rows a block,
+64 a warp with their A fragments in registers, script tiles through a
+``cp.async`` ring.  They differ in the merge.  K2 sends each score that
+reaches its row's gate to a per-row list and merges the list into the
+row's top-k (one entry by an insert, more by a warp bitonic sort and
+merge); the gate rises to the k-th score + 1 once the row is full.  K7
+runs the TPU kernel's per-row kill loop over a score tile that the warp
+writes only when a row's maximum beats its k-th.
+``utils/topk_cases.py`` holds the edge cases of both designs.
 """
 
 from __future__ import annotations

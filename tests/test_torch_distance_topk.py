@@ -20,6 +20,7 @@ from fandom_search_tpu.ops.distance_topk import (
 )
 from fandom_search_tpu.search.oracle import topk_scores_np
 from fandom_search_tpu_torch.ops.distance_topk import NEG_INF, topk_dot
+from fandom_search_tpu_torch.utils import topk_cases as tc
 
 K, DIM = 10, 128
 
@@ -153,3 +154,60 @@ def test_topk_rejects_bad_arguments():
         topk_dot(q, s, 9, K)
     with pytest.raises(ValueError):
         topk_dot(q, s[:, :64], 8, K)
+
+
+# ---- the edge world of the tensor-core designs (utils/topk_cases.py)
+
+
+def _jnp_top(q, s, ns_valid, kmax=32):
+    """topk_dot_jnp over s[:ns_valid], padded to kmax slots with
+    (NEG_INF, 0): every k <= kmax is a prefix (lax.top_k is sorted and
+    stable)."""
+    v = np.full((q.shape[0], kmax), JAX_NEG_INF, np.float32)
+    i = np.zeros((q.shape[0], kmax), np.int32)
+    if ns_valid:
+        kk = min(kmax, ns_valid)
+        jv, ji = _exact(q, s[:ns_valid], k=kk)
+        v[:, :kk], i[:, :kk] = jv, ji
+    return v, i
+
+
+@pytest.fixture(scope="module")
+def edge():
+    q, s = tc.edge_world()
+    return q, s, {ns: _jnp_top(q, s, ns) for ns in tc.NS_VALID}
+
+
+def expected_edge(edge, ns_valid, k, min_keep):
+    """The JAX op's top-k of the edge world, entries below min_keep
+    replaced by padding (the port keeps only entries >= min_keep)."""
+    ev, ei = (x[:, :k] for x in edge[2][ns_valid])
+    drop = ev < min_keep
+    return np.where(drop, NEG_INF, ev), np.where(drop, 0, ei)
+
+
+def test_edge_world_holds_the_cases(edge):
+    q, s, _ = edge
+    sc = q.astype(np.int64) @ s.astype(np.int64).T
+    keep = int(np.ceil(tc.MIN_KEEP * DIM))
+    assert q.shape[0] % 256 != 0
+    for r, (a, b) in enumerate(((31, 32), (63, 64), (127, 128))):
+        assert sc[r, a] == sc[r, b] == sc[r].max()     # ties across an edge
+    assert (sc[5, 400:440] == sc[5].max()).all()          # more ties than a step
+    pad = sc[100:]
+    assert (pad == pad[0]).all()                          # identical rows
+    assert (pad[0, 1024:1056] >= keep).all()              # a whole step passes
+    assert (pad[0, :3001] >= keep).sum() > 4 * tc.STEP    # many steps pass
+    assert pad[0, 2500] == pad[0, 2999] > pad[0, 1000]    # a late, higher tie
+
+
+@pytest.mark.parametrize("gated", [False, True], ids=["exact", "gated"])
+@pytest.mark.parametrize("k", tc.KS)
+@pytest.mark.parametrize("ns_valid", tc.NS_VALID)
+def test_plain_edge_world_matches_jnp(edge, ns_valid, k, gated):
+    """Every slot, at ns_valid around a step's and a tile's edge, k = 1 to
+    32, exact and at the engine's threshold."""
+    mk = tc.MIN_KEEP if gated else -float("inf")
+    v, i = _port(edge[0], edge[1], k=k, ns_valid=ns_valid, min_keep=mk)
+    ev, ei = expected_edge(edge, ns_valid, k, mk)
+    assert np.array_equal(v, ev) and np.array_equal(i, ei)

@@ -15,9 +15,10 @@ import jax.numpy as jnp
 
 from fandom_search_tpu.config import ShingleConfig
 from fandom_search_tpu.data.shingler import embed_shingles_np
-from fandom_search_tpu.ops.distance_topk import pad_rows, topk_dot_pallas
+from fandom_search_tpu.ops.distance_topk import pad_rows, topk_dot_jnp, topk_dot_pallas
 from fandom_search_tpu_torch.ops import _cuda
 from fandom_search_tpu_torch.ops import distance_topk as dt
+from fandom_search_tpu_torch.utils import topk_cases as tc
 
 K, DIM = 10, 128
 NQ, NS = 512, 4096
@@ -152,3 +153,58 @@ def test_wrapper_routes_to_k7_or_k2(monkeypatch, merge, min_keep, entry):
     assert args[4:9] == (5, 60, DIM, K, dt.min_keep_int(min_keep, DIM))
     rows = entry == "fs_topk_rows"
     assert (dt.topk_dot.launches, dt.topk_dot.launches_rows) == (int(not rows), int(rows))
+
+
+# ---- the edge world of the tensor-core designs (utils/topk_cases.py)
+
+
+@pytest.fixture(scope="module")
+def edge():
+    q, s = tc.edge_world()
+    tops = {}
+    for ns in tc.NS_VALID:
+        v = np.full((q.shape[0], 32), dt.NEG_INF, np.float32)
+        i = np.zeros((q.shape[0], 32), np.int32)
+        if ns:
+            kk = min(32, ns)
+            jv, ji = topk_dot_jnp(q, s[:ns], kk, DIM)
+            v[:, :kk], i[:, :kk] = np.asarray(jv), np.asarray(ji)
+        tops[ns] = v, i
+    return q, s, tops
+
+
+def _port_k(q, s, ns_valid, k, min_keep):
+    v, i = dt.topk_dot(torch.from_numpy(q), torch.from_numpy(s), ns_valid, k,
+                       min_keep=min_keep, merge="rows")
+    return v.numpy(), i.numpy()
+
+
+@pytest.mark.parametrize("gated", [False, True], ids=["exact", "gated"])
+@pytest.mark.parametrize("k", tc.KS)
+@pytest.mark.parametrize("ns_valid", tc.NS_VALID)
+def test_rows_edge_world_matches_jnp(edge, ns_valid, k, gated):
+    """merge="rows" in every slot against topk_dot_jnp (entries below
+    min_keep as padding): ns_valid around a step's and a tile's edge, k 1
+    to 32, at the engine's threshold and exact (which K2 computes)."""
+    q, s, tops = edge
+    mk = tc.MIN_KEEP if gated else -float("inf")
+    v, i = _port_k(q, s, ns_valid, k, mk)
+    ev, ei = (x[:, :k] for x in tops[ns_valid])
+    drop = ev < mk
+    assert np.array_equal(v, np.where(drop, dt.NEG_INF, ev))
+    assert np.array_equal(i, np.where(drop, 0, ei))
+
+
+@pytest.mark.parametrize("ns_valid", [tc.TILE + 1, 3001])
+def test_rows_edge_world_equals_jax_rows_kernel(edge, ns_valid):
+    """The interpreted JAX rows kernel on the edge world: ties across step
+    and tile edges, identical padding rows with more passing columns than a
+    step holds, every slot."""
+    q, s, _ = edge
+    nq = q.shape[0]
+    qp = np.zeros((-(-nq // 128) * 128, DIM), np.int8)
+    qp[:nq] = q
+    v, i = _port_k(q, s, ns_valid, K, tc.MIN_KEEP)
+    jv, ji = _jax(qp, s, ns_valid, tc.MIN_KEEP, "rows")
+    assert np.array_equal(v, jv[:nq]) and np.array_equal(i, ji[:nq])
+    assert (v >= tc.MIN_KEEP).any()
