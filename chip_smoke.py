@@ -16,7 +16,13 @@ and time:
    equality is required (tolerance 0: every output is an integer or one
    f32 division of integers).  Prints warm times of both, the least
    time the card could take (bound) and, where one PyTorch call
-   computes the same function, that call's time.  K3: the scan (both
+   computes the same function, that call's time.  Beside the engine's
+   shapes, the shapes the JAX config admits beyond them: K1 at dim 256
+   with n 3 and 9; K4 and K5 at LB 65, 96, 128 and 200 with LA 64 and
+   100 (timed in turns); K2 and K7 at dim 256 and 512 (2^18 rows, gated)
+   and at k 33, 64, 256 and 1000 (2^14 rows, exact and gated); K6 at
+   4,096 and 8,192 bits (b1 and s8) and at R 1,025 and 2,048 (2^14 rows,
+   exact and gated), every slot equal and timed.  K3: the scan (both
    ops; n 1, 1023, 1025, 2^20, 2^20 + 37) and the compaction (0%, 1%,
    100% set; size below, at and above the count), each call one kernel
    and no memset in the profiler, with CUDA-event and profiler (device)
@@ -57,6 +63,10 @@ and time:
    `matrix --html` on the search's CSV.
 8. profile: one warm `search --index --profile` over the sample; prints
    the device's busy share from the trace (kernel time over wall time).
+9. wide configurations: the exact path on the first 600 works at
+   ShingleConfig(dim=256), at max_line_tokens=96 and at k 40 with
+   batch_queries 2^18; K1-K4 must launch, and the rows of a 40-work
+   sample must equal the NumPy oracle's.
 
 It prints the kernel table as one JSON line, then, as its last line,
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -107,11 +117,14 @@ PATHS = {
     "profile": EXACT,
 }
 # NVIDIA H100 SXM peaks (data sheet, dense): HBM bytes/s, int8 tensor-core
-# operations/s, and the CUDA cores' f32 rate, taken for their integer and
-# f32 work alike
+# operations/s, and the CUDA cores' f32 rate
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1.979e15
 CUDA_CORE_OPS_S = 67e12
+# 32-bit integer multiplies: 64 lanes an SM a clock on 132 SMs, at the
+# card's boost clock (nvidia-smi clocks.max.sm; set in main)
+INT32_LANES = 132 * 64
+INT32_OPS_S = INT32_LANES * 1.98e9
 # worker processes for the NumPy oracle of the serve phase (the card's
 # host has 8 cores)
 ORACLE_PROCS = 8
@@ -291,11 +304,27 @@ def kernel_checks(engine, works, seed: int):
         plain_ms=cuda_ms(lambda: embed_shingles_plain(tok, dix.mults), 3),
         library_ms=None,
         shape=f"T={tok.shape[0]}",
-        # tokens and multipliers in, int8 rows out; a multiply and an add
-        # per (row, lane, position)
+        # tokens and multipliers in, int8 rows out; one 32-bit integer
+        # multiply per (row, lane, position)
         **bound(tok.numel() * 4 + dix.mults.numel() * 4 + got.numel(),
-                2 * got.numel() * n, CUDA_CORE_OPS_S),
+                got.numel() * n, INT32_OPS_S),
     )
+    # dim 256 at n 3 and 9 on the same stream, every slot
+    from fandom_search_tpu_torch.data.hashing import derive_sign_mults
+
+    res["embed_shingles"]["new_shapes"] = shapes = {}
+    for n2 in (3, 9):
+        mu = torch.from_numpy(derive_sign_mults(cfg.shingle.seed, n2, 256)
+                              .view(np.int32).copy()).to(dev)
+        t2 = tok[: cfg.search.batch_queries + n2 - 1].contiguous()
+        g2 = embed_shingles(t2, mu)
+        sync()
+        check(torch.equal(g2, embed_shingles_plain(t2, mu)),
+              f"K1 differs from plain at n {n2}, dim 256")
+        shapes[f"n{n2}_dim256"] = dict(
+            ms=cuda_ms(lambda: embed_shingles(t2, mu), 20),
+            **bound(t2.numel() * 4 + mu.numel() * 4 + g2.numel(), g2.numel() * n2,
+                    INT32_OPS_S))
     done("K1 embed", t0, f"T={tok.shape[0]} M={got.shape[0]} {res['embed_shingles']}")
 
     res.update(topk_check(engine, tok, got))
@@ -351,8 +380,13 @@ def kernel_checks(engine, works, seed: int):
         ms=cuda_ms(lambda: sw_lane(A, B, LA_, LB_, xc), 20),
         plain_ms=plain_ms, library_ms=None, shape=shape, **sw_bound,
     )
-    # the two designs side by side, in turns
+    # the two designs side by side, in turns; and their device times from
+    # the profiler (a call's event time holds its wrapper's host time when
+    # that is longer than the kernel)
     res["sw_lane"]["k4_ms_beside"] = cuda_ms(lambda: sw_wide(A, B, LA_, LB_, xc), 20)
+    res["sw_wide"]["k5_ms_beside"] = cuda_ms(lambda: sw_lane(A, B, LA_, LB_, xc), 20)
+    res["sw_wide"]["device_ms"] = one_kernel_ms(lambda: sw_wide(A, B, LA_, LB_, xc), "sw_wide")
+    res["sw_lane"]["device_ms"] = one_kernel_ms(lambda: sw_lane(A, B, LA_, LB_, xc), "sw_lane")
     # other operand widths the wrappers take: narrower, and a wider than b
     for wa, wb in ((23, 11), (100, 64), (1, 1)):
         a2, b2 = A[:, :wa].contiguous(), B[:, :wb].contiguous()
@@ -363,10 +397,50 @@ def kernel_checks(engine, works, seed: int):
         check(torch.equal(sw_lane(a2, b2, la2, lb2, xc), w2)
               and torch.equal(sw_wide(a2, b2, la2, lb2, xc), w2),
               f"K5 or K4 differs from plain at {wa}x{wb}")
+    # segments wider than 64 tokens (max_line_tokens > 64): strips
+    wide = {}
+    for wa in (64, 100):
+        for wb in (65, 96, 128, 200):
+            A2, B2, LA2, LB2, cells2 = sw_pairs(rng, 4096, wa, wb, dev)
+            w2 = sw_normalized_plain(A2, B2, LA2, LB2, xc.sw_match, xc.sw_mismatch, xc.sw_gap)
+            check(torch.equal(sw_wide(A2, B2, LA2, LB2, xc), w2)
+                  and torch.equal(sw_lane(A2, B2, LA2, LB2, xc), w2),
+                  f"K4 or K5 differs from plain at LA {wa}, LB {wb}")
+            t = {"k4": [], "k5": []}
+            for key, fn in (("k4", sw_wide), ("k5", sw_lane), ("k5", sw_lane), ("k4", sw_wide)):
+                t[key].append(cuda_ms(lambda: fn(A2, B2, LA2, LB2, xc), 10))
+            wide[f"{wa}x{wb}"] = dict(k4_ms=min(t["k4"]), k5_ms=min(t["k5"]), cells=cells2)
+    res["sw_wide"]["new_shapes"] = res["sw_lane"]["new_shapes"] = wide
+    print(f"[K5 smith_waterman_lane] LA 64/100 x LB 65/96/128/200, 4096 pairs each: K4 and "
+          f"K5 equal to plain; {wide}", flush=True)
     done("K5 smith_waterman_lane", t0, str(res["sw_lane"]))
 
     res["hamming_topk"] = hamming_check(engine, got)
     return res
+
+
+def sw_pairs(rng, bsz, la, lb, dev):
+    """``bsz`` length-sorted pairs of at most la x lb with len-0 and full
+    rows and a's words inside b past column 40; (a, b, len_a, len_b) on
+    ``dev`` and the cells they need."""
+    import numpy as np
+    import torch
+
+    a = rng.integers(1, 60, size=(bsz, la)).astype(np.uint32)
+    b = rng.integers(1, 60, size=(bsz, lb)).astype(np.uint32)
+    len_a = rng.integers(0, la + 1, size=bsz).astype(np.int32)
+    len_b = rng.integers(0, lb + 1, size=bsz).astype(np.int32)
+    len_a[:32] = 0
+    len_b[32:64] = 0
+    len_a[64:96], len_b[64:96] = la, lb
+    for i in range(96, bsz, 3):
+        m = int(min(len_a[i], len_b[i] - 40))
+        if m > 0:
+            b[i, 40 : 40 + m] = a[i, :m]
+    order = np.argsort(-(len_a + len_b), kind="stable")
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x[order]).view(np.int32)).to(dev)  # noqa: E731
+    cells = int((len_a.astype(np.int64) * len_b).sum())
+    return t(a), t(b), t(len_a), t(len_b), cells
 
 
 def topk_check(engine, tok, q):
@@ -478,6 +552,118 @@ def topk_check(engine, tok, q):
     done("K2 distance_topk", t0, f"engine shape, 2^14 exact at k {k}/32 and the padding "
                                  f"batch equal to plain in every slot, K2 and K7; "
                                  f"K2 {out['topk_dot']}; K7 {out['topk_dot_rows']}")
+    return out
+
+
+def topk_wide_check(engine, tok, q, index):
+    """K2 and K7 at the shapes the JAX config admits beyond the engine's,
+    every slot against the plain version: dim 256 and 512 on the first
+    2^18 rows of the first batch against the script's rows embedded at
+    that dim, gated at the engine's threshold; k 33, 64, 256 and 1000 on
+    2^14 rows at dim 128, exact and gated.  Returns the K2 and the K7
+    entries ({shape: dict(ms, bound...)})."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fandom_search_tpu_torch.data.hashing import derive_sign_mults
+    from fandom_search_tpu_torch.ops.distance_topk import (
+        min_keep_int, topk_dot, topk_dot_plain,
+    )
+    from fandom_search_tpu_torch.ops.embed import embed_shingles
+    from fandom_search_tpu_torch.search.index import build_script_index
+
+    t0 = phase("K2/K7 wide shapes")
+    cfg = engine.cfg
+    dev = q.device
+    thr, k = cfg.search.candidate_threshold, cfg.search.k
+    out2, out7 = {}, {}
+
+    def same(got, want):
+        return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    def run(name, qq, s, ns, kk, mk, dim, merges):
+        want = topk_dot_plain(qq, s, ns, kk, min_keep_int(mk, dim))
+        filled = int((want[0] > -1e38).sum())
+        check(filled > 0, f"K2/K7 {name}: no entry to compare")
+        for merge in merges:
+            got = topk_dot(qq, s, ns, kk, min_keep=mk, merge=merge)
+            torch.cuda.synchronize()
+            check(same(got, want), f"{'K7' if merge == 'rows' else 'K2'} differs from plain "
+                                   f"at {name}")
+        times = {m: [] for m in merges}
+        for merge in merges + merges[::-1]:
+            times[merge].append(cuda_ms(lambda: topk_dot(qq, s, ns, kk, min_keep=mk,
+                                                         merge=merge), 3))
+        ops = 2 * qq.shape[0] * ns * dim
+        for merge in merges:
+            ms = min(times[merge])
+            (out7 if merge == "rows" else out2)[name] = dict(
+                ms=ms, filled=filled, tops=ops / (ms / 1e3) / 1e12,
+                **bound(qq.numel() + s.numel() + qq.shape[0] * kk * 8, ops, INT8_OPS_S))
+
+    rows = 1 << 18
+    for dim in (256, 512):
+        scfg = dataclasses.replace(cfg.shingle, dim=dim)
+        s = torch.from_numpy(np.ascontiguousarray(
+            build_script_index(index.lines, scfg, cfg.search).embeddings)).to(dev)
+        mu = torch.from_numpy(derive_sign_mults(scfg.seed, scfg.n, dim)
+                              .view(np.int32).copy()).to(dev)
+        qd = embed_shingles(tok[: rows + scfg.n - 1].contiguous(), mu)
+        run(f"dim{dim}_nq{rows}_k{k}_gated", qd, s, s.shape[0], k, thr, dim, ("insert", "rows"))
+        del qd, s
+    s = engine._dix.s_emb
+    qs = q[: 1 << 14].contiguous()
+    dim = cfg.shingle.dim
+    for kk in (33, 64, 256, 1000):
+        run(f"k{kk}_nq16384_exact", qs, s, s.shape[0], kk, -float("inf"), dim, ("insert",))
+        run(f"k{kk}_nq16384_gated", qs, s, s.shape[0], kk, thr, dim, ("insert", "rows"))
+    done("K2/K7 wide shapes", t0, f"every slot equal to plain; K2 {out2}; K7 {out7}")
+    return out2, out7
+
+
+def hamming_wide_check(engine, q_emb):
+    """K6 at the shapes the JAX config admits beyond the engine's, every
+    slot against the plain version on 2^14 rows of the first batch: 4,096
+    and 8,192 bits (b1 and s8; rerank 256) and R 1,025 and 2,048 at 1,024
+    bits, exact and gated."""
+    import torch
+
+    from fandom_search_tpu_torch import LSHConfig
+    from fandom_search_tpu_torch.ops.lsh import (
+        SENT, LSHIndex, coarse_sim_threshold, encode, hamming_topk, hamming_topk_plain,
+    )
+
+    t0 = phase("K6 wide shapes")
+    cfg = engine.cfg
+    qs = q_emb[: 1 << 14].contiguous()
+    out = {}
+    for bits, r, routes in ((4096, 256, ("b1", "s8")), (8192, 256, ("b1", "s8")),
+                            (1024, 1025, ("b1", "s8")), (1024, 2048, ("b1", "s8"))):
+        lcfg = LSHConfig(bits=bits, rerank=r)
+        lsh = LSHIndex.build(engine.index.embeddings, lcfg, cfg.shingle,
+                             pad_multiple=cfg.search.script_pad_multiple, device=engine.device)
+        qc = encode(qs, lsh.projection)
+        ns = lsh.ns_valid
+        keep = coarse_sim_threshold(cfg.search.candidate_threshold, cfg.shingle.n, bits)
+        for mode, mks in (("exact", SENT), ("gated", keep)):
+            pv, pi = hamming_topk_plain(qc, lsh.codes_t, ns, r, bits, mks)
+            filled = int((pv > -1e38).sum())
+            check(filled > 0, f"K6 bits {bits} R {r} {mode}: no entry to compare")
+            for mma in routes:
+                kv, ki = hamming_topk(qc, lsh.codes_t, ns, r, bits, min_keep_sim=mks, mma=mma)
+                torch.cuda.synchronize()
+                check(torch.equal(kv, pv) and torch.equal(ki, pi),
+                      f"K6 ({mma}) differs from plain at bits {bits} R {r} {mode}")
+                ms = cuda_ms(lambda: hamming_topk(qc, lsh.codes_t, ns, r, bits,
+                                                  min_keep_sim=mks, mma=mma), 3)
+                out[f"bits{bits}_r{r}_{mode}_{mma}"] = dict(
+                    ms=ms, filled=filled,
+                    **bound(qc.numel() * 4 + lsh.codes_t.numel() * 4 + qc.shape[0] * r * 8,
+                            2 * qc.shape[0] * ns * bits, INT8_OPS_S))
+            del pv, pi
+    done("K6 wide shapes", t0, f"2^14 rows, every slot equal to plain on b1 and s8: {out}")
     return out
 
 
@@ -1050,6 +1236,51 @@ def profile_phase(idx: Path, wdir: Path, root: Path, device="cuda"):
     return launches
 
 
+def wide_configs(index, cfg, works, sample: int = 600, oracle_sample: int = 40,
+                 device="cuda"):
+    """Phase 9: the exact path on the first ``sample`` works at the
+    configurations the CUDA kernels refused before: dim 256, long script
+    segments (max_line_tokens 96) and k 40 (batch_queries 2^18); counted,
+    and the rows of ``oracle_sample`` works held to the NumPy oracle."""
+    import dataclasses
+
+    from fandom_search_tpu_torch.search.engine import SearchEngine
+    from fandom_search_tpu_torch.search.index import build_script_index
+
+    t0 = phase("wide configs")
+    ids = sorted(works)[:sample]
+    sub = {w: works[w] for w in ids}
+    out, launches = {}, {}
+    for name, shingle_kw, search_kw in (
+        ("dim256", {"dim": 256}, {}),
+        ("max_line_tokens96", {}, {"max_line_tokens": 96}),
+        ("k40", {}, {"k": 40, "batch_queries": 1 << 18}),
+    ):
+        c = dataclasses.replace(cfg, shingle=dataclasses.replace(cfg.shingle, **shingle_kw),
+                                search=dataclasses.replace(cfg.search, **search_kw))
+        idx = build_script_index(index.lines, c.shingle, c.search)
+        engine = SearchEngine(idx, c, device=device)
+        (rows, stats, seconds), launches[name] = counted("exact", lambda: search(engine, sub))
+        oids = set(ids[:oracle_sample])
+        orows = oracle_rows({w: sub[w] for w in sorted(oids)}, idx, c)
+        key = lambda r: (r.work_id, r.fan_token_start, r.line_no)  # noqa: E731
+        gk = {key(r) for r in rows if r.work_id in oids}
+        ok_ = {key(r) for r in orows}
+        parity = len(gk & ok_) / len(gk | ok_) if (gk or ok_) else 1.0
+        got = sorted(r.to_csv_row() for r in rows if r.work_id in oids)
+        want = sorted(r.to_csv_row() for r in orows)
+        check(parity == 1.0 and got == want,
+              f"{name}: sample rows differ from the oracle's (parity {parity})")
+        check(want, f"{name}: the oracle found no row to compare")
+        out[name] = dict(seconds=seconds, rows=len(rows), oracle_rows=len(want),
+                         sample_parity=parity, batches=stats.num_batches,
+                         candidates=stats.num_candidates, launches=launches[name])
+    print(json.dumps({"wide_configs": out}), flush=True)
+    done("wide configs", t0, f"{len(ids)} works each at dim 256, max_line_tokens 96 and k 40: "
+                             f"sample parity 1.0 against the oracle")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--works", type=int, default=10_000)
@@ -1069,9 +1300,15 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=120, check=True,
     ).stdout.strip().splitlines()
     print(smi[0], flush=True)
+    boost = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=120, check=True,
+    ).stdout.strip().splitlines()[0]
+    global INT32_OPS_S
+    INT32_OPS_S = INT32_LANES * float(boost) * 1e6
     kind = torch.cuda.get_device_name(0)
     done("device", t0, f"{kind} x{torch.cuda.device_count()} torch {torch.__version__} "
-                       f"cuda {torch.version.cuda}")
+                       f"cuda {torch.version.cuda}; boost clock {boost} MHz")
 
     from fandom_search_tpu_torch.ops import _cuda
 
@@ -1085,6 +1322,7 @@ def main(argv=None) -> int:
     done("build", t0, f"nvcc {build_s:.1f}s; native tokenizer loaded from "
                       f"{fast_tokenizer._SRC.relative_to(ROOT)}")
 
+    from fandom_search_tpu_torch.ops.embed import embed_shingles
     from fandom_search_tpu_torch.search.engine import SearchEngine
 
     t0 = phase("world")
@@ -1094,6 +1332,12 @@ def main(argv=None) -> int:
                       f"shingles, {len(works)} works, {len(planted)} planted")
 
     res = kernel_checks(engine, works, args.seed)
+    tok = first_batch_stream(engine, works)
+    q_emb = embed_shingles(tok, engine._dix.mults)
+    res["topk_dot"]["new_shapes"], res["topk_dot_rows"]["new_shapes"] = topk_wide_check(
+        engine, tok, q_emb, index)
+    res["hamming_topk"]["new_shapes"] = hamming_wide_check(engine, q_emb)
+    del q_emb
     launches = {}
     exact_rows, launches["exact"] = end_to_end(engine, works, planted, index, cfg)
     no_host_sync(engine, works, "exact")
@@ -1104,6 +1348,8 @@ def main(argv=None) -> int:
         by_phase, idx, wdir = persist_serve(works, script_text, Path(tmp))
         launches.update(by_phase)
         launches["profile"] = profile_phase(idx, wdir, Path(tmp))
+    for name, n in wide_configs(index, cfg, works).items():
+        launches[f"wide_{name}"] = n
 
     table = []
     for key, name, _, _, _, src, rep, path in KERNELS:

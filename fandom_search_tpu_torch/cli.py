@@ -43,6 +43,11 @@ def _add_search_flags(p: argparse.ArgumentParser) -> None:
                    help="top-k per query shingle (default 10)")
     p.add_argument("--shingle-n", type=int, default=None,
                    help="words per shingle (default 6; index-bound)")
+    p.add_argument("--shingle-dim", type=int, default=None,
+                   help="embedding lanes per shingle (default 128; "
+                        "index-bound; a multiple of 128).  256 halves the "
+                        "overlap estimator's noise sd, for recall-critical "
+                        "deployments")
     p.add_argument("--candidate-threshold", type=float, default=None,
                    help="min estimated matching words (of n) to keep a "
                         "candidate (default 3.5)")
@@ -100,7 +105,12 @@ def _runtime_overrides(args) -> dict:
 def _pipeline_config(args):
     from fandom_search_tpu_torch.config import PipelineConfig, SearchConfig, ShingleConfig
 
-    shingle = ShingleConfig() if args.shingle_n is None else ShingleConfig(n=args.shingle_n)
+    sh_kw = {}
+    if args.shingle_n is not None:
+        sh_kw["n"] = args.shingle_n
+    if getattr(args, "shingle_dim", None) is not None:
+        sh_kw["dim"] = args.shingle_dim
+    shingle = ShingleConfig(**sh_kw)
     return PipelineConfig(
         shingle=shingle,
         search=dataclasses.replace(SearchConfig(), **_runtime_overrides(args)),
@@ -110,13 +120,20 @@ def _pipeline_config(args):
 def _overlay_runtime(cfg, args):
     """Overlay explicit runtime flags onto a persisted-index config.
 
-    The shingle width is baked into the stored embeddings and cannot be
-    overridden; warn if the user tries.
+    The shingle width and embedding dim are baked into the stored
+    embeddings and cannot be overridden; warn if the user tries.
     """
     if args.shingle_n is not None and args.shingle_n != cfg.shingle.n:
         print(
             f"warning: --shingle-n {args.shingle_n} ignored; the loaded "
             f"index was built with n={cfg.shingle.n}",
+            file=sys.stderr,
+        )
+    if (getattr(args, "shingle_dim", None) is not None
+            and args.shingle_dim != cfg.shingle.dim):
+        print(
+            f"warning: --shingle-dim {args.shingle_dim} ignored; the "
+            f"loaded index was built with dim={cfg.shingle.dim}",
             file=sys.stderr,
         )
     over = _runtime_overrides(args)

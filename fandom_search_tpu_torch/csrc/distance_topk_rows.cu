@@ -35,6 +35,12 @@
 //      is smaller.  The row's top-k lives in shared memory; the warp holds
 //      it in lanes 0..k-1 while it merges, and an insert is a ballot for
 //      the slot and one shuffle up.
+// Other shapes, each a template instantiation beside the engine's (dim
+// 128, k <= 32): dim any other multiple of 128 takes the chunked producer
+// of int8_tiles.cuh; k > 32 keeps a row's top-k scores and columns in its
+// own rows of the outputs (vals as int32 scores until the end), and an
+// insert counts the slots scoring >= the winner (lane-strided) and moves
+// the later slots down by one, highest first.
 // The TPU kernel's max_rows cap and staged fallback bounded unrolled TPU
 // code; here every entrant is merged, so there is none.  Columns past
 // ns_valid score INT_MIN and are dead keys; rows past nq never enter.
@@ -51,9 +57,11 @@ using namespace tiles;
 
 constexpr int kPitch = kSubCols + 1;  // score-tile row pitch, in ints
 
-size_t smem_bytes(int k) {
-  return static_cast<size_t>(kRingBytes) +
-         sizeof(int) * (static_cast<size_t>(kBlockRows) * kPitch + 2 * kBlockRows * k);
+// Shared memory: the ring, the score tile, and top-k scores and columns
+// [kBlockRows][k] (small k only).
+size_t smem_bytes(int k, bool chunked, bool big) {
+  return static_cast<size_t>(chunked ? kCRingBytes : kRingBytes) +
+         sizeof(int) * (static_cast<size_t>(kBlockRows) * kPitch + (big ? 0 : 2 * kBlockRows * k));
 }
 
 // The gate of a row whose k-th score is kth (INT_MIN: fewer than k).
@@ -102,26 +110,85 @@ __device__ __forceinline__ void merge_row(const int* __restrict__ sr, int c0, in
   }
 }
 
+// k > 32: one warp merges row r's step scores into its top-k held in
+// device memory (top_sc int32 scores, INT_MIN when empty; top_col).
+__device__ __forceinline__ void merge_row_big(const int* __restrict__ sr, int c0, int k,
+                                              int min_keep_i, int* top_sc, int* top_col,
+                                              int lane) {
+  const int v = sr[lane];
+  int key = v == INT_MIN ? INT_MIN : v * 32 + (31 - lane);
+  int kth = top_sc[k - 1];
+  // at most one insert a column, then the round that ends the loop
+  for (int round = 0; round <= 32; ++round) {
+    const int m = __reduce_max_sync(kFull, key);
+    if (m == INT_MIN) break;
+    const int ms = m >> 5;
+    if (ms < min_keep_i || ms <= kth) break;
+    const int mj = 31 - (m & 31);
+    // slot: after every entry scoring >= ms (those have lower columns)
+    int ge = 0;
+    for (int j = lane; j < k; j += 32) ge += top_sc[j] >= ms;
+    const int pos = __reduce_add_sync(kFull, ge);
+    for (int base = (k - 1) & ~31; base >= (pos & ~31); base -= 32) {
+      const int j = base + lane;
+      const bool mv = j > pos && j < k;
+      int vs = 0, vc = 0;
+      if (mv) {
+        vs = top_sc[j - 1];
+        vc = top_col[j - 1];
+      }
+      __syncwarp();
+      if (mv) {
+        top_sc[j] = vs;
+        top_col[j] = vc;
+      }
+      __syncwarp();
+    }
+    if (lane == 0) {
+      top_sc[pos] = ms;
+      top_col[pos] = c0 + mj;
+    }
+    __syncwarp();
+    kth = top_sc[k - 1];
+    if (lane == mj) key = INT_MIN;
+  }
+}
+
+// CHUNKED: dim != 128 (walk_script_chunked); BIG: k > 32 (top-k in the
+// outputs).
+template <bool CHUNKED, bool BIG>
 __global__ void __launch_bounds__(kThreads, 2)
-topk_rows_kernel(const int8_t* __restrict__ q,  // [nq, 128]
-                 const int8_t* __restrict__ s,  // [>= ns, 128]
-                 float* __restrict__ vals,      // [nq, k]
-                 int* __restrict__ idx,         // [nq, k]
-                 long long nq, int ns, int k, int min_keep_i, float inv_dim) {
+topk_rows_kernel(const int8_t* __restrict__ q,  // [nq, dim]
+                 const int8_t* __restrict__ s,  // [>= ns, dim]
+                 float* vals,                   // [nq, k] (BIG: the top-k scores as int32 first)
+                 int* idx,                      // [nq, k]
+                 long long nq, int ns, int dim, int k, int min_keep_i, float inv_dim) {
+  constexpr int kRing = CHUNKED ? kCRingBytes : kRingBytes;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   uint8_t* ring = smem;
-  // this warp's rows: score tile [64][kPitch], top-k scores and columns [64][k]
-  int* score = reinterpret_cast<int*>(smem + kRingBytes) + warp * kWarpRows * kPitch;
-  int* top_sc = reinterpret_cast<int*>(smem + kRingBytes) + kBlockRows * kPitch +
-                warp * kWarpRows * k;
-  int* top_col = top_sc + kBlockRows * k;
-
   const long long r0 = static_cast<long long>(blockIdx.x) * kBlockRows + warp * kWarpRows;
-  for (int e = lane; e < kWarpRows * k; e += 32) {
-    top_sc[e] = INT_MIN;  // empty slot: below every real score
-    top_col[e] = 0;
+  const long long rows = nq - r0 < kWarpRows ? nq - r0 : kWarpRows;
+  // this warp's rows: score tile [64][kPitch], top-k scores and columns
+  // [64][k] (in shared memory, or BIG: the warp's rows of the outputs)
+  int* score = reinterpret_cast<int*>(smem + kRing) + warp * kWarpRows * kPitch;
+  int* top_sc;
+  int* top_col;
+  if constexpr (BIG) {
+    top_sc = reinterpret_cast<int*>(vals) + r0 * k;
+    top_col = idx + r0 * k;
+    for (long long e = lane; e < rows * k; e += 32) {
+      top_sc[e] = INT_MIN;
+      top_col[e] = 0;
+    }
+  } else {
+    top_sc = reinterpret_cast<int*>(smem + kRing) + kBlockRows * kPitch + warp * kWarpRows * k;
+    top_col = top_sc + kBlockRows * k;
+    for (int e = lane; e < kWarpRows * k; e += 32) {
+      top_sc[e] = INT_MIN;  // empty slot: below every real score
+      top_col[e] = 0;
+    }
   }
   int gate[kMT][2];  // the gates of this thread's 8 rows
 #pragma unroll
@@ -129,10 +196,7 @@ topk_rows_kernel(const int8_t* __restrict__ q,  // [nq, 128]
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi)
       gate[mt][hi] = r0 + mt * 16 + (lane >> 2) + 8 * hi < nq ? min_keep_i : INT_MAX;
-  AFrag a;
-  load_a(a, q, nq, r0, lane);
-
-  walk_script(ring, s, ns, a, lane, [&](Acc& acc, int c0) {
+  auto epi = [&](Acc& acc, int c0) {
     // (a) + (b): each row's step maximum over its quad, and the gate
     bool enter[kMT][2];
     bool any = false;
@@ -167,8 +231,13 @@ topk_rows_kernel(const int8_t* __restrict__ q,  // [nq, 128]
         while (todo) {
           const int r = mt * 16 + 8 * hi + ((__ffs(todo) - 1) >> 2);
           todo &= todo - 1;
-          merge_row(score + r * kPitch, c0, k, min_keep_i, top_sc + r * k, top_col + r * k,
-                    lane);
+          if constexpr (BIG) {
+            merge_row_big(score + r * kPitch, c0, k, min_keep_i, top_sc + r * k,
+                          top_col + r * k, lane);
+          } else {
+            merge_row(score + r * kPitch, c0, k, min_keep_i, top_sc + r * k, top_col + r * k,
+                      lane);
+          }
         }
       }
     __syncwarp();
@@ -179,39 +248,60 @@ topk_rows_kernel(const int8_t* __restrict__ q,  // [nq, 128]
         const int r = mt * 16 + (lane >> 2) + 8 * hi;
         if (enter[mt][hi]) gate[mt][hi] = row_gate(top_sc[r * k + k - 1], min_keep_i);
       }
-  });
+  };
+  if constexpr (CHUNKED) {
+    walk_script_chunked(ring, q, nq, r0, s, ns, dim, lane, epi);
+  } else {
+    AFrag a;
+    load_a(a, q, nq, r0, lane);
+    walk_script(ring, s, ns, a, lane, epi);
+  }
 
   // the warp's rows are contiguous in the outputs
   __syncwarp();
-  const long long rows = nq - r0 < kWarpRows ? nq - r0 : kWarpRows;
   for (long long e = lane; e < rows * k; e += 32) {
     const int sc = top_sc[e];
     const bool empty = sc == INT_MIN;
     vals[r0 * k + e] = empty ? -FLT_MAX : static_cast<float>(sc) * inv_dim;
-    idx[r0 * k + e] = empty ? 0 : top_col[e];
+    if constexpr (!BIG) idx[r0 * k + e] = empty ? 0 : top_col[e];
   }
+}
+
+template <bool CHUNKED, bool BIG>
+int launch(const void* q, const void* s, void* vals, void* idx, long long nq, int ns_valid,
+           int dim, int k, int min_keep_i, float inv_dim, cudaStream_t stream) {
+  const size_t smem = smem_bytes(k, CHUNKED, BIG);
+  const cudaError_t e = cudaFuncSetAttribute(topk_rows_kernel<CHUNKED, BIG>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks = (nq + kBlockRows - 1) / kBlockRows;
+  topk_rows_kernel<CHUNKED, BIG><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(s), static_cast<float*>(vals),
+      static_cast<int*>(idx), nq, ns_valid, dim, k, min_keep_i, inv_dim);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q int8 [nq, dim], s int8 [>= ns_valid, dim] (both 16-byte aligned),
-// vals f32 [nq, k], idx int32 [nq, k].  dim == 128, 1 <= k <= 32 and
-// min_keep_i >= 1 are checked by the Python wrapper; other values return
-// cudaErrorInvalidValue.
+// vals f32 [nq, k], idx int32 [nq, k].  dim a positive multiple of 128,
+// k >= 1 and min_keep_i >= 1 are checked by the Python wrapper; other
+// values return cudaErrorInvalidValue.
 extern "C" int fs_topk_rows(const void* q, const void* s, void* vals, void* idx,
                             long long nq, int ns_valid, int dim, int k,
                             int min_keep_i, float inv_dim, void* stream) {
-  if (dim != kDim || k < 1 || k > 32 || min_keep_i < 1) {
+  if (dim < kDim || dim % kDim != 0 || k < 1 || min_keep_i < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = smem_bytes(k);
-  const cudaError_t e = cudaFuncSetAttribute(
-      topk_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long blocks = (nq + kBlockRows - 1) / kBlockRows;
-  topk_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const int8_t*>(s), static_cast<float*>(vals),
-      static_cast<int*>(idx), nq, ns_valid, k, min_keep_i, inv_dim);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool chunked = dim != kDim;
+  const bool big = k > 32;
+  if (!chunked && !big)
+    return launch<false, false>(q, s, vals, idx, nq, ns_valid, dim, k, min_keep_i, inv_dim, st);
+  if (!chunked)
+    return launch<false, true>(q, s, vals, idx, nq, ns_valid, dim, k, min_keep_i, inv_dim, st);
+  if (!big)
+    return launch<true, false>(q, s, vals, idx, nq, ns_valid, dim, k, min_keep_i, inv_dim, st);
+  return launch<true, true>(q, s, vals, idx, nq, ns_valid, dim, k, min_keep_i, inv_dim, st);
 }

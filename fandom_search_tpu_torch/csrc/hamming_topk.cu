@@ -58,6 +58,14 @@
 //   order (ballot and __match_any_sync rank the lanes of one bin).  Tiles
 //   ascend, so the output is sorted, lowest column first on ties, with no
 //   sort.
+// Wide codes (bits > 2048, up to 8,192): the row histogram (h_max + 1
+// bins, up to 8,193) no longer fits beside the ring, so it lives in a
+// device-memory scratch of the block's rows (the wrapper allocates it for
+// kScratchRows rows and the launch walks the rows in chunks of that size);
+// the same atomics, prefix and emit run on it.  A tile is scored in chunks
+// of kWideWords code words, each loaded and scored in turn (one slot, no
+// ring).  R has no upper limit: pass 2 writes slots below R by their bin's
+// first slot, whatever R is.
 // wgmma (m64nNk32 s8) would reach further toward the int8 bound: it is
 // asynchronous and reads B from shared memory, which needs the tile
 // expanded to bytes there first (128 KB for 128 columns of 1,024 bits);
@@ -74,7 +82,8 @@ constexpr int kBN = 128;          // script columns per tile
 constexpr int kBNP = kBN + 8;     // word pitch of a staged tile row (b1 reads: no bank conflicts)
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxR = 1024;
+constexpr int kMaxWords = 256;   // bits <= 8192
+constexpr int kWideWords = 64;   // wider codes: histogram in device memory, tiles in chunks
 constexpr int kOut = 1 << 20;     // popcount of a row or column that must not enter
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kHPitch = kBN + 2;  // uint16 pitch of the hamming tile (odd word count)
@@ -133,6 +142,19 @@ struct Tiling {
   static constexpr int NT = WN / 8;             // n8 tiles per warp
 };
 
+template <int MT, int NT>
+__device__ __forceinline__ void zero_acc(int (&acc)[MT][NT][4], int (&acc1)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc1[nt][e] = 0;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) acc[mt][nt][e] = 0;
+    }
+  }
+}
+
 // Stage tile t's codes (W x kBN words) with cp.async; columns >= ns read 0.
 // vec: 16-byte copies (codes_t 16-byte aligned and stride % 4 == 0).
 __device__ __forceinline__ void load_tile(uint32_t* bs, const uint32_t* __restrict__ st,
@@ -173,24 +195,30 @@ __device__ __forceinline__ int next_tile(const uint32_t* flags, int t, int ntile
 
 // BIN: false scores on s8 m16n8k32 (0/1 bytes), true on b1 m16n8k256
 // (the packed words as they are; words % 8 == 0).
-template <int BM, bool BIN>
+// WIDE (words > kWideWords): the histogram in ghist, the [gridDim.x * BM,
+// h_max + 1] scratch, and tiles staged kWideWords words at a time; else
+// the histogram in shared memory and whole tiles through the ring.
+template <int BM, bool BIN, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 1)
 hamming_topk_tc(const uint32_t* __restrict__ q,   // [nq, words]
                 const uint32_t* __restrict__ st,  // [words, stride]
                 float* __restrict__ vals,         // [nq, r]
                 int* __restrict__ idx,            // [nq, r]
+                int* __restrict__ ghist,
                 long long nq, int words, long long stride, int ns, int r, int bits,
                 int h_max, int stages, int fwords, int vec) {
   using T = Tiling<BM>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int nbins = h_max + 1;
   const int astride = BIN ? 4 * words + 16 : 32 * words + 16;
-  const Layout L(BM, astride, stages, words, nbins, fwords);
+  const int cw = WIDE ? kWideWords : words;  // words a staged tile holds
+  const Layout L(BM, astride, stages, cw, WIDE ? 0 : nbins, fwords);
   uint8_t* a_s = smem + L.a;
   uint32_t* b_s = reinterpret_cast<uint32_t*>(smem + L.b);
   uint16_t* h_s = reinterpret_cast<uint16_t*>(smem + L.ht);
   unsigned long long* list = reinterpret_cast<unsigned long long*>(smem + L.ht);
-  int* hist = reinterpret_cast<int*>(smem + L.hist);
+  int* hist = WIDE ? ghist + static_cast<long long>(blockIdx.x) * BM * nbins
+                   : reinterpret_cast<int*>(smem + L.hist);
   int* pa_s = reinterpret_cast<int*>(smem + L.pa);
   int* thr_s = reinterpret_cast<int*>(smem + L.thr);
   int* cnt_s = reinterpret_cast<int*>(smem + L.cnt);
@@ -249,7 +277,7 @@ hamming_topk_tc(const uint32_t* __restrict__ q,   // [nq, words]
     // all-ones A: its product with a column is the column's popcount
     const uint32_t one = BIN ? 0xffffffffu : 0x01010101u;
     const uint32_t a_one[4] = {one, one, one, one};
-    const int slot_words = words * kBNP;
+    const int slot_words = cw * kBNP;
 
 #pragma unroll 1
     for (int pass = 1; pass <= 2; ++pass) {
@@ -264,73 +292,83 @@ hamming_topk_tc(const uint32_t* __restrict__ q,   // [nq, words]
       }
       int t = next_tile(flags, -1, ntiles, all);
       for (int i = 0; t < ntiles; ++i) {
-        const uint32_t* bs = b_s + (i % stages) * slot_words;
-        if (stages == 1) {
-          __syncthreads();  // every thread is done with the slot
-          load_tile(b_s, st, words, stride, ns, t, vec);
-          cp_commit();
-          cp_wait(0);
-          __syncthreads();
-        } else {
-          cp_wait(stages - 2);  // tile t has landed for this thread...
-          __syncthreads();      // ...and every thread, and the last tile's slot is free
-          tp = next_tile(flags, tp, ntiles, all);
-          if (tp < ntiles) {
-            load_tile(b_s + ((i + stages - 1) % stages) * slot_words, st, words, stride, ns,
-                      tp, vec);
-          }
-          cp_commit();
-        }
-
         // ---- scores: acc = dot01 over all words; one = the columns' popcounts
         int acc[T::MT][T::NT][4];
         int acc1[T::NT][4];
-#pragma unroll
-        for (int nt = 0; nt < T::NT; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc1[nt][e] = 0;
-#pragma unroll
-            for (int mt = 0; mt < T::MT; ++mt) acc[mt][nt][e] = 0;
-          }
-        }
-        const uint32_t* b_lane = bs + wn * T::WN + (lane >> 2);
-        if (BIN) {
-          // k-step of 256 bits: A words tq and tq+4 of each row (ldmatrix),
-          // B words tq and tq+4 of column g
-          const uint32_t* b_q = b_lane + (lane & 3) * kBNP;
+        // acc += words [w0, w0 + nw) of the tile staged at bs
+        auto score = [&](const uint32_t* bs, int w0, int nw) {
+          const uint32_t* b_lane = bs + wn * T::WN + (lane >> 2);
+          if (BIN) {
+            // k-step of 256 bits: A words tq and tq+4 of each row (ldmatrix),
+            // B words tq and tq+4 of column g
+            const uint32_t* b_q = b_lane + (lane & 3) * kBNP;
 #pragma unroll 2
-          for (int c8 = 0; c8 < words; c8 += 8) {
-            uint32_t af[T::MT][4];
+            for (int c8 = 0; c8 < nw; c8 += 8) {
+              uint32_t af[T::MT][4];
 #pragma unroll
-            for (int mt = 0; mt < T::MT; ++mt)
-              ldsm_x4(af[mt], a_lane + mt * 16 * astride + c8 * 4);
+              for (int mt = 0; mt < T::MT; ++mt)
+                ldsm_x4(af[mt], a_lane + mt * 16 * astride + (w0 + c8) * 4);
 #pragma unroll
-            for (int nt = 0; nt < T::NT; ++nt) {
-              const uint32_t b0 = b_q[c8 * kBNP + nt * 8];
-              const uint32_t b1 = b_q[(c8 + 4) * kBNP + nt * 8];
+              for (int nt = 0; nt < T::NT; ++nt) {
+                const uint32_t b0 = b_q[c8 * kBNP + nt * 8];
+                const uint32_t b1 = b_q[(c8 + 4) * kBNP + nt * 8];
 #pragma unroll
-              for (int mt = 0; mt < T::MT; ++mt) mma_b1(acc[mt][nt], af[mt], b0, b1);
-              mma_b1(acc1[nt], a_one, b0, b1);
+                for (int mt = 0; mt < T::MT; ++mt) mma_b1(acc[mt][nt], af[mt], b0, b1);
+                mma_b1(acc1[nt], a_one, b0, b1);
+              }
             }
+          } else {
+#pragma unroll 2
+            for (int w = 0; w < nw; ++w) {
+              uint32_t af[T::MT][4];
+#pragma unroll
+              for (int mt = 0; mt < T::MT; ++mt)
+                ldsm_x4(af[mt], a_lane + mt * 16 * astride + (w0 + w) * 32);
+#pragma unroll
+              for (int nt = 0; nt < T::NT; ++nt) {
+                const uint32_t x = b_lane[w * kBNP + nt * 8] >> nib_sh;
+                const uint32_t b0 = spread4(x & 15u);
+                const uint32_t b1 = spread4((x >> 16) & 15u);
+#pragma unroll
+                for (int mt = 0; mt < T::MT; ++mt) mma_s8(acc[mt][nt], af[mt], b0, b1);
+                mma_s8(acc1[nt], a_one, b0, b1);
+              }
+            }
+          }
+        };
+        if constexpr (WIDE) {
+          zero_acc<T::MT, T::NT>(acc, acc1);
+          // wide codes: the tile in chunks of cw words, each loaded and scored in turn
+          for (int w0 = 0; w0 < words; w0 += cw) {
+            const int nw = min(cw, words - w0);
+            __syncthreads();  // every thread is done with the slot
+            load_tile(b_s, st + static_cast<long long>(w0) * stride, nw, stride, ns, t, vec);
+            cp_commit();
+            cp_wait(0);
+            __syncthreads();
+            score(b_s, w0, nw);
           }
         } else {
-#pragma unroll 2
-          for (int w = 0; w < words; ++w) {
-            uint32_t af[T::MT][4];
-#pragma unroll
-            for (int mt = 0; mt < T::MT; ++mt)
-              ldsm_x4(af[mt], a_lane + mt * 16 * astride + w * 32);
-#pragma unroll
-            for (int nt = 0; nt < T::NT; ++nt) {
-              const uint32_t x = b_lane[w * kBNP + nt * 8] >> nib_sh;
-              const uint32_t b0 = spread4(x & 15u);
-              const uint32_t b1 = spread4((x >> 16) & 15u);
-#pragma unroll
-              for (int mt = 0; mt < T::MT; ++mt) mma_s8(acc[mt][nt], af[mt], b0, b1);
-              mma_s8(acc1[nt], a_one, b0, b1);
+          const uint32_t* bs = b_s + (i % stages) * slot_words;
+          if (stages == 1) {
+            __syncthreads();  // every thread is done with the slot
+            load_tile(b_s, st, words, stride, ns, t, vec);
+            cp_commit();
+            cp_wait(0);
+            __syncthreads();
+          } else {
+            cp_wait(stages - 2);  // tile t has landed for this thread...
+            __syncthreads();      // ...and every thread, and the last tile's slot is free
+            tp = next_tile(flags, tp, ntiles, all);
+            if (tp < ntiles) {
+              load_tile(b_s + ((i + stages - 1) % stages) * slot_words, st, words, stride, ns,
+                        tp, vec);
             }
+            cp_commit();
           }
+          // zeroed after the ring's barrier, so they are not live across it
+          zero_acc<T::MT, T::NT>(acc, acc1);
+          score(bs, 0, words);
         }
         // popcounts of this lane's two columns per n8 tile; a column past
         // ns_valid never enters
@@ -499,46 +537,61 @@ hamming_topk_tc(const uint32_t* __restrict__ q,   // [nq, words]
   }
 }
 
-template <int BM, bool BIN>
-int launch(const void* q, const void* codes_t, void* vals, void* idx, long long nq, int words,
-           long long stride, int ns, int r, int bits, int h_max, int stages, int fwords,
-           int vec, size_t smem, cudaStream_t stream) {
+template <int BM, bool BIN, bool WIDE>
+int launch(const void* q, const void* codes_t, void* vals, void* idx, int* ghist, long long nq,
+           int words, long long stride, int ns, int r, int bits, int h_max, int stages,
+           int fwords, int vec, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(hamming_topk_tc<BM, BIN>,
+    const cudaError_t e = cudaFuncSetAttribute(hamming_topk_tc<BM, BIN, WIDE>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const long long blocks = (nq + BM - 1) / BM;
-  hamming_topk_tc<BM, BIN><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  hamming_topk_tc<BM, BIN, WIDE><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(codes_t),
-      static_cast<float*>(vals), static_cast<int*>(idx), nq, words, stride, ns, r, bits, h_max,
-      stages, fwords, vec);
+      static_cast<float*>(vals), static_cast<int*>(idx), ghist, nq, words, stride, ns, r, bits,
+      h_max, stages, fwords, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The most rows a block, then the double buffer, whose shared memory fits.
+// The most rows a block, then the double buffer, whose shared memory fits;
+// wide codes (ghist set) walk the rows in chunks of scratch_rows.
 template <bool BIN>
-int pick_and_launch(const void* q, const void* codes_t, void* vals, void* idx, long long nq,
-                    int words, long long stride, int ns, int r, int bits, int h_max,
-                    size_t optin, cudaStream_t st) {
+int pick_and_launch(const void* q, const void* codes_t, void* vals, void* idx, int* ghist,
+                    long long scratch_rows, long long nq, int words, long long stride, int ns,
+                    int r, int bits, int h_max, size_t optin, cudaStream_t st) {
   const int ntiles = (ns + kBN - 1) / kBN;
   const int fwords = (ntiles + 31) / 32 + 1;
   const int nbins = h_max + 1;
   const int arow = BIN ? 4 * words + 16 : 32 * words + 16;
   const int vec = (reinterpret_cast<uintptr_t>(codes_t) % 16 == 0 && stride % 4 == 0) ? 1 : 0;
+  const bool wide = ghist != nullptr;
+  const int cw = wide ? kWideWords : words;
   for (int bm = 64; bm >= 16; bm /= 2) {
-    for (int stages = 4; stages >= 1; --stages) {
-      const size_t smem = Layout(bm, arow, stages, words, nbins, fwords).total;
+    for (int stages = wide ? 1 : 4; stages >= 1; --stages) {
+      const size_t smem = Layout(bm, arow, stages, cw, wide ? 0 : nbins, fwords).total;
       if (smem > optin) continue;
-      if (bm == 64)
-        return launch<64, BIN>(q, codes_t, vals, idx, nq, words, stride, ns, r, bits, h_max,
-                               stages, fwords, vec, smem, st);
-      if (bm == 32)
-        return launch<32, BIN>(q, codes_t, vals, idx, nq, words, stride, ns, r, bits, h_max,
-                               stages, fwords, vec, smem, st);
-      return launch<16, BIN>(q, codes_t, vals, idx, nq, words, stride, ns, r, bits, h_max,
-                             stages, fwords, vec, smem, st);
+      const long long step = wide ? scratch_rows : nq;
+      for (long long r0 = 0; r0 < nq; r0 += step) {
+        const long long n = nq - r0 < step ? nq - r0 : step;
+        const uint32_t* qc = static_cast<const uint32_t*>(q) + r0 * words;
+        float* vc = static_cast<float*>(vals) + r0 * r;
+        int* ic = static_cast<int*>(idx) + r0 * r;
+#define FS_HAMMING_LAUNCH(BMV, W)                                                        \
+  launch<BMV, BIN, W>(qc, codes_t, vc, ic, ghist, n, words, stride, ns, r, bits, h_max, stages, \
+                      fwords, vec, smem, st)
+        int rc;
+        if (bm == 64)
+          rc = wide ? FS_HAMMING_LAUNCH(64, true) : FS_HAMMING_LAUNCH(64, false);
+        else if (bm == 32)
+          rc = wide ? FS_HAMMING_LAUNCH(32, true) : FS_HAMMING_LAUNCH(32, false);
+        else
+          rc = wide ? FS_HAMMING_LAUNCH(16, true) : FS_HAMMING_LAUNCH(16, false);
+#undef FS_HAMMING_LAUNCH
+        if (rc != 0) return rc;
+      }
+      return 0;
     }
   }
   return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -547,17 +600,22 @@ int pick_and_launch(const void* q, const void* codes_t, void* vals, void* idx, l
 }  // namespace
 
 // q int32 [nq, words], codes_t int32 [words, stride] (uint32 bit patterns),
-// vals f32 [nq, r], idx int32 [nq, r]; bits = 32 * words <= 2048,
-// 1 <= r <= 1024, 0 <= ns_valid <= stride, -1 <= h_max <= bits; route 0
-// scores on s8 mma, route 1 on b1 mma (bits a multiple of 256).  Other
-// values return cudaErrorInvalidValue; a shape whose block does not fit
-// in shared memory returns cudaErrorInvalidConfiguration.
+// vals f32 [nq, r], idx int32 [nq, r]; bits = 32 * words <= 8192, r >= 1,
+// 0 <= ns_valid <= stride, -1 <= h_max <= bits; route 0 scores on s8 mma,
+// route 1 on b1 mma (bits a multiple of 256).  Wide codes (words > 64) need
+// scratch: int32 [scratch_rows, h_max + 1] with scratch_rows a positive
+// multiple of 64; the rows then run in launches of scratch_rows.  Other
+// values return cudaErrorInvalidValue; a shape whose block does not fit in
+// shared memory returns cudaErrorInvalidConfiguration.
 extern "C" int fs_hamming_topk(const void* q, const void* codes_t, void* vals, void* idx,
-                               long long nq, int words, long long stride, int ns_valid,
-                               int r, int bits, int h_max, int route, void* stream) {
-  if (words < 1 || words > 64 || bits != 32 * words || r < 1 || r > kMaxR ||
+                               void* scratch, long long scratch_rows, long long nq, int words,
+                               long long stride, int ns_valid, int r, int bits, int h_max,
+                               int route, void* stream) {
+  const bool wide = words > kWideWords;
+  if (words < 1 || words > kMaxWords || bits != 32 * words || r < 1 ||
       ns_valid < 0 || ns_valid > stride || h_max < -1 || h_max > bits ||
-      route < 0 || route > 1 || (route == 1 && words % 8 != 0)) {
+      route < 0 || route > 1 || (route == 1 && words % 8 != 0) ||
+      (wide && (scratch == nullptr || scratch_rows < 64 || scratch_rows % 64 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int dev = 0, optin = 0;
@@ -566,9 +624,10 @@ extern "C" int fs_hamming_topk(const void* q, const void* codes_t, void* vals, v
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* ghist = wide ? static_cast<int*>(scratch) : nullptr;
   if (route == 1)
-    return pick_and_launch<true>(q, codes_t, vals, idx, nq, words, stride, ns_valid, r, bits,
-                                 h_max, static_cast<size_t>(optin), st);
-  return pick_and_launch<false>(q, codes_t, vals, idx, nq, words, stride, ns_valid, r, bits,
-                                h_max, static_cast<size_t>(optin), st);
+    return pick_and_launch<true>(q, codes_t, vals, idx, ghist, scratch_rows, nq, words, stride,
+                                 ns_valid, r, bits, h_max, static_cast<size_t>(optin), st);
+  return pick_and_launch<false>(q, codes_t, vals, idx, ghist, scratch_rows, nq, words, stride,
+                                ns_valid, r, bits, h_max, static_cast<size_t>(optin), st);
 }

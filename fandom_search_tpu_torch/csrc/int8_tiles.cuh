@@ -26,6 +26,13 @@
 // 2^20-row batch against 19,033 script rows reads 4,096 x 2.44 MB =
 // 10 GB from L2; kWarpRows = 64 makes a warp's ldmatrix reads of B 2
 // per 16 mma.
+// Other dims (any multiple of 128) take walk_script_chunked: the same
+// warps, rows and epilogue steps, but the dot runs over 128-byte k-chunks.
+// A ring slot holds one step's kSubCols script rows x one chunk (kCStages
+// slots), and the warp reloads its A fragments of the chunk from device
+// memory (L1) for each slot, so neither registers nor shared memory grow
+// with dim; the step's accumulators add up over the chunks before the
+// epilogue sees them.
 #pragma once
 
 #include <climits>
@@ -56,6 +63,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
 }
 
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Wait until at most N of this thread's copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_wait_n() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 // Wait until at most n (0..2) of this thread's copy groups are pending.
 __device__ __forceinline__ void cp_wait(int n) {
   if (n >= 2) {
@@ -82,23 +94,27 @@ constexpr int kRowPitch = kDim + 16;
 constexpr int kStages = 3;
 constexpr int kSlotBytes = kTileCols * kRowPitch;
 constexpr int kRingBytes = kStages * kSlotBytes;
+constexpr int kCStages = 8;                        // chunked ring: slots
+constexpr int kCSlotBytes = kSubCols * kRowPitch;  // one step x one 128-byte chunk
+constexpr int kCRingBytes = kCStages * kCSlotBytes;
 constexpr unsigned kFull = 0xffffffffu;
 
 using AFrag = uint32_t[kMT][4][4];  // [m16 tile][k-step][register]
 using Acc = int[kMT][kNT][4];       // [m16 tile][n8 tile][register]
 
-// The warp's A fragments for rows [r0, r0 + kWarpRows); rows >= nq are 0.
+// The warp's A fragments for rows [r0, r0 + kWarpRows), bytes [koff, koff
+// + 128) of rows ld bytes long; rows >= nq are 0.
 __device__ __forceinline__ void load_a(AFrag& a, const int8_t* __restrict__ q, long long nq,
-                                       long long r0, int lane) {
+                                       long long r0, int lane, int ld = kDim, int koff = 0) {
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt) {
     const long long ra = r0 + mt * 16 + (lane >> 2);
     const long long rb = ra + 8;
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
-      const int off = ks * 32 + (lane & 3) * 4;
-      const uint32_t* pa = reinterpret_cast<const uint32_t*>(q + ra * kDim + off);
-      const uint32_t* pb = reinterpret_cast<const uint32_t*>(q + rb * kDim + off);
+      const int off = koff + ks * 32 + (lane & 3) * 4;
+      const uint32_t* pa = reinterpret_cast<const uint32_t*>(q + ra * ld + off);
+      const uint32_t* pb = reinterpret_cast<const uint32_t*>(q + rb * ld + off);
       a[mt][ks][0] = ra < nq ? pa[0] : 0u;
       a[mt][ks][1] = rb < nq ? pb[0] : 0u;
       a[mt][ks][2] = ra < nq ? pa[4] : 0u;
@@ -119,15 +135,19 @@ __device__ __forceinline__ void load_b(uint8_t* slot, const int8_t* __restrict__
   }
 }
 
-// acc = the warp's rows x the kSubCols script rows staged at `b`.
-__device__ __forceinline__ void score_step(Acc& acc, const AFrag& a, const uint8_t* b,
-                                           int lane) {
+__device__ __forceinline__ void zero_acc(Acc& acc) {
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+}
+
+// acc += the warp's rows x the kSubCols script rows staged at `b` (one
+// 128-byte chunk of each).
+__device__ __forceinline__ void score_add(Acc& acc, const AFrag& a, const uint8_t* b,
+                                          int lane) {
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt) {
     // matrix j of an ldmatrix.x4: 8 script rows x bytes [16 j, 16 j + 16)
@@ -144,6 +164,27 @@ __device__ __forceinline__ void score_step(Acc& acc, const AFrag& a, const uint8
       for (int mt = 0; mt < kMT; ++mt) mma_s8(acc[mt][nt], a[mt][ks], b0, b1);
     }
   }
+}
+
+// acc = the warp's rows x the kSubCols script rows staged at `b`.
+__device__ __forceinline__ void score_step(Acc& acc, const AFrag& a, const uint8_t* b,
+                                           int lane) {
+  zero_acc(acc);
+  score_add(acc, a, b, lane);
+}
+
+// Columns >= ns score INT_MIN, below every gate.
+__device__ __forceinline__ void mask_tail(Acc& acc, int c0, int ns, int lane) {
+  if (c0 + kSubCols <= ns) return;
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool out = c0 + nt * 8 + 2 * (lane & 3) + (e & 1) >= ns;
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        if (out) acc[mt][nt][e] = INT_MIN;
+    }
 }
 
 // The largest of a thread's 8 scores of row (mt, hi) in a step.
@@ -180,17 +221,64 @@ __device__ __forceinline__ void walk_script(uint8_t* ring, const int8_t* __restr
       if (c0 >= ns) break;
       Acc acc;
       score_step(acc, a, slot + sub * kSubCols * kRowPitch, lane);
-      if (c0 + kSubCols > ns) {
+      mask_tail(acc, c0, ns, lane);
+      epi(acc, c0);
+    }
+  }
+  cp_wait(0);
+}
+
+// Stage bytes [ch * 128, ch * 128 + 128) of script rows [c0, c0 + kSubCols)
+// (rows dim bytes long) into a chunked-ring slot; rows >= ns read 0.
+__device__ __forceinline__ void load_b_chunk(uint8_t* slot, const int8_t* __restrict__ s,
+                                             int ns, int dim, int c0, int ch) {
+  for (int e = threadIdx.x; e < kSubCols * (kDim / 16); e += kThreads) {
+    const int r = e / (kDim / 16);
+    const int piece = e - r * (kDim / 16);
+    const bool ok = c0 + r < ns;
+    cp_async16(slot + r * kRowPitch + piece * 16,
+               ok ? s + static_cast<long long>(c0 + r) * dim + ch * kDim + piece * 16 : s,
+               ok ? 16 : 0);
+  }
+}
+
+// walk_script for rows of any dim that is a multiple of 128: items (step t,
+// chunk ch) stream through the chunked ring in order, kCStages - 1 ahead;
+// the warp's A fragments of chunk ch come from device memory (q, rows
+// [r0, r0 + kWarpRows), nq rows of dim bytes), and epi(acc, c0) runs once
+// a step's last chunk has been added.
+template <class Epi>
+__device__ __forceinline__ void walk_script_chunked(uint8_t* ring, const int8_t* __restrict__ q,
+                                                    long long nq, long long r0,
+                                                    const int8_t* __restrict__ s, int ns,
+                                                    int dim, int lane, Epi&& epi) {
+  const int nch = dim / kDim;
+  const int nitems = (ns + kSubCols - 1) / kSubCols * nch;
 #pragma unroll
-        for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool out = c0 + nt * 8 + 2 * (lane & 3) + (e & 1) >= ns;
-#pragma unroll
-            for (int mt = 0; mt < kMT; ++mt)
-              if (out) acc[mt][nt][e] = INT_MIN;
-          }
-      }
+  for (int i = 0; i + 1 < kCStages; ++i) {
+    if (i < nitems) load_b_chunk(ring + i * kCSlotBytes, s, ns, dim, i / nch * kSubCols, i % nch);
+    cp_commit();
+  }
+  Acc acc;
+#pragma unroll 1
+  for (int it = 0; it < nitems; ++it) {
+    cp_wait_n<kCStages - 2>();  // item it has landed for this thread...
+    __syncthreads();            // ...and every thread; the last item's slot is free
+    const int in = it + kCStages - 1;
+    if (in < nitems) {
+      load_b_chunk(ring + (in % kCStages) * kCSlotBytes, s, ns, dim, in / nch * kSubCols,
+                   in % nch);
+    }
+    cp_commit();
+    const int t = it / nch;
+    const int ch = it - t * nch;
+    if (ch == 0) zero_acc(acc);
+    AFrag a;
+    load_a(a, q, nq, r0, lane, dim, ch * kDim);
+    score_add(acc, a, ring + (it % kCStages) * kCSlotBytes, lane);
+    if (ch == nch - 1) {
+      const int c0 = t * kSubCols;
+      mask_tail(acc, c0, ns, lane);
       epi(acc, c0);
     }
   }

@@ -45,13 +45,14 @@ _SIGNATURES = {
     "fs_scan": [_P, _P, _P, _L, _I, _I, _P],
     # mask, out, scratch, n, size, scratch words, stream
     "fs_compact": [_P, _P, _P, _L, _I, _I, _P],
-    # a, b, len_a, len_b, out, bsz, la, lb, match, mismatch, gap, stream
-    "fs_sw": [_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _P],
+    # a, b, len_a, len_b, out, scratch, bsz, la, lb, match, mismatch, gap,
+    # stream
+    "fs_sw": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _P],
     # the same arguments as fs_sw
-    "fs_sw_lane": [_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _P],
-    # q, codes_t, vals, idx, nq, words, stride, ns_valid, r, bits, h_max,
-    # route (0 s8 / 1 b1 mma), stream
-    "fs_hamming_topk": [_P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I, _I, _P],
+    "fs_sw_lane": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _P],
+    # q, codes_t, vals, idx, scratch, scratch_rows, nq, words, stride,
+    # ns_valid, r, bits, h_max, route (0 s8 / 1 b1 mma), stream
+    "fs_hamming_topk": [_P, _P, _P, _P, _P, _L, _L, _I, _L, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -26,6 +26,14 @@ merge); the gate rises to the k-th score + 1 once the row is full.  K7
 runs the TPU kernel's per-row kill loop over a score tile that the warp
 writes only when a row's maximum beats its k-th.
 ``utils/topk_cases.py`` holds the edge cases of both designs.
+
+Beside the engine's shape (dim 128, k <= 32) both kernels take any dim
+that is a multiple of 128 (the producer walks 128-byte k-chunks, A
+reloaded per chunk) and any k (above 32 a row's top-k lives in its rows
+of the outputs and entries are inserted by the warp), through their own
+template instantiations.  Scores must satisfy |dot| * 32 < 2^31 (the
+packed step keys), which embeddings with entries in [-n, n] do for any
+dim below 2^26 / n^2.
 """
 
 from __future__ import annotations
@@ -41,8 +49,7 @@ NEG_INF = float(np.finfo(np.float32).min)
 # n^2 * dim), the same floor the JAX kernel uses for -inf
 _KEEP_FLOOR = -(1 << 30)
 _KEY_EMPTY = -(1 << 62)
-_KERNEL_DIM = 128
-_KERNEL_MAX_K = 32
+_KERNEL_DIM_STEP = 128
 _MERGES = ("insert", "insertloop", "rebuild", "rows")
 
 
@@ -129,10 +136,8 @@ def topk_dot(q: torch.Tensor, s: torch.Tensor, ns_valid: int, k: int, *,
     keep_i = min_keep_int(min_keep, dim)
     if _cuda.on_cpu(q, s):
         return topk_dot_plain(q, s, ns_valid, k, keep_i)
-    _cuda.require(dim == _KERNEL_DIM,
-                  f"the CUDA kernel takes dim {_KERNEL_DIM}, got {dim}")
-    _cuda.require(k <= _KERNEL_MAX_K,
-                  f"the CUDA kernel takes k <= {_KERNEL_MAX_K}, got {k}")
+    _cuda.require(dim > 0 and dim % _KERNEL_DIM_STEP == 0,
+                  f"the CUDA kernel takes dim a multiple of {_KERNEL_DIM_STEP}, got {dim}")
     _cuda.require(q.is_contiguous() and s.is_contiguous(),
                   "q and s must be contiguous")
     _cuda.require(q.data_ptr() % 16 == 0 and s.data_ptr() % 16 == 0,

@@ -12,8 +12,6 @@ import torch
 
 from fandom_search_tpu_torch.ops import _cuda
 
-_MAX_SMEM = 48 * 1024
-
 
 def _u32_mul_bit31(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Bit 31 of (a * b mod 2^32) for int32 bit patterns, exact in int64.
@@ -53,9 +51,9 @@ def embed_shingles(tokens: torch.Tensor, mults: torch.Tensor) -> torch.Tensor:
     n, dim = mults.shape
     _cuda.require(tokens.is_contiguous() and mults.is_contiguous(),
                   "tokens and mults must be contiguous")
-    _cuda.require(dim % 16 == 0, f"dim ({dim}) must be a multiple of 16")
-    _cuda.require(n * dim * 4 <= _MAX_SMEM,
-                  f"n * dim ({n} * {dim}) multipliers exceed shared memory")
+    _cuda.require(n >= 1 and dim % 16 == 0 and dim > 0,
+                  f"n ({n}) must be >= 1 and dim ({dim}) a multiple of 16")
+    _cuda.require(mults.data_ptr() % 16 == 0, "mults must be 16-byte aligned")
     m = max(0, tokens.shape[0] - n + 1)
     out = torch.empty((m, dim), dtype=torch.int8, device=tokens.device)
     if m == 0:

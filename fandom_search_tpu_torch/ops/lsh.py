@@ -34,8 +34,13 @@ from fandom_search_tpu_torch.ops.distance_topk import NEG_INF, topk_lowest_col
 # min_keep_sim that keeps every column: the exact top-R (the JAX
 # package's _SENT)
 SENT = -(1 << 30)
-_KERNEL_MAX_BITS = 2048
-_KERNEL_MAX_R = 1024
+# the JAX package's packing holds bits <= 8192 (fandom_search_tpu/ops/lsh.py)
+_KERNEL_MAX_BITS = 8192
+# wider codes keep K6's row histogram in a device scratch of this many
+# rows x (h_max + 1) bins (134 MB at 8,192 bits); the launch walks the
+# rows in chunks of it
+_WIDE_BITS = 2048
+_SCRATCH_ROWS = 4096
 _ENCODE_ROWS = 1 << 16   # rows per projection chunk (256 MB of f32 at 1024 bits)
 # rerank score of a slot stage 1 left empty: below every exact dot
 _EMPTY_SCORE = -(1 << 40)
@@ -204,8 +209,6 @@ def hamming_topk(q_codes: torch.Tensor, codes_t: torch.Tensor, ns_valid: int,
                                   min_keep_sim)
     _cuda.require(bits <= _KERNEL_MAX_BITS,
                   f"the CUDA kernel takes bits <= {_KERNEL_MAX_BITS}, got {bits}")
-    _cuda.require(rerank <= _KERNEL_MAX_R,
-                  f"the CUDA kernel takes rerank <= {_KERNEL_MAX_R}, got {rerank}")
     _cuda.require(q_codes.is_contiguous() and codes_t.is_contiguous(),
                   "q_codes and codes_t must be contiguous")
     nq = q_codes.shape[0]
@@ -215,14 +218,22 @@ def hamming_topk(q_codes: torch.Tensor, codes_t: torch.Tensor, ns_valid: int,
         return vals, idx
     # sim >= min_keep_sim  <=>  hamming <= (bits - min_keep_sim) / 2
     h_max = max(-1, min(bits, (bits - int(min_keep_sim)) // 2))
+    scratch, scratch_rows, launches = None, 0, 1
+    if bits > _WIDE_BITS:
+        # one launch per chunk of scratch_rows rows
+        scratch_rows = min(_SCRATCH_ROWS, -(-nq // 64) * 64)
+        launches = -(-nq // scratch_rows)
+        scratch = torch.empty((scratch_rows * max(1, h_max + 1),), dtype=torch.int32,
+                              device=q_codes.device)
     lib = _cuda.library()
     rc = lib.fs_hamming_topk(
         q_codes.data_ptr(), codes_t.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+        0 if scratch is None else scratch.data_ptr(), scratch_rows,
         nq, words, codes_t.shape[1], int(ns_valid), rerank, bits, h_max,
         _MMA_ROUTES[mma], _cuda.stream_ptr(q_codes.device),
     )
     _cuda.check(rc, "fs_hamming_topk")
-    hamming_topk.launches += 1
+    hamming_topk.launches += launches
     return vals, idx
 
 

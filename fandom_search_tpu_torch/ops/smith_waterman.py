@@ -3,9 +3,12 @@
 ``sw_normalized`` routes by ``cfg.sw_variant`` as the JAX package's
 ``sw_normalized_pallas`` does: "wide", "exitw" and "slide" (the TPU's
 transposed kernel) go to K4, ``sw_wide`` (``csrc/smith_waterman.cu``,
-one thread per pair); "fast", "r2" and "dyn" (the TPU's lane-major
-kernel) go to K5, ``sw_lane`` (``csrc/smith_waterman_lane.cu``, one warp
-per pair).  Every variant computes one function — both kernels are
+eight lanes per pair, rows skewed over them); "fast", "r2" and "dyn"
+(the TPU's lane-major kernel) go to K5, ``sw_lane``
+(``csrc/smith_waterman_lane.cu``, one warp per pair along the
+anti-diagonals).  Both take any LB: segments wider than 64 columns run
+in strips of 64, the strip's last column kept in a scratch buffer that
+the wrapper allocates.  Every variant computes one function — both kernels are
 exact, where JAX's "exitw" may lower scores below the threshold — so
 CPU tensors take the one plain version, ``sw_normalized_plain``.
 Tokens travel as int32 bit patterns.
@@ -20,7 +23,10 @@ import torch.nn.functional as F
 from fandom_search_tpu_torch.config import SearchConfig
 from fandom_search_tpu_torch.ops import _cuda
 
-_KERNEL_MAX_LB = 64
+# widest segment a kernel covers in one pass; wider ones run in strips
+# and need the [B, 2, max(LA, LB)] f32 scratch of strip-end columns (K4
+# puts the longer of a pair's two sequences along the columns)
+_STRIP = 64
 LANE_VARIANTS = ("fast", "r2", "dyn")
 
 
@@ -80,16 +86,17 @@ def _run(symbol: str, a, b, len_a, len_b, cfg: SearchConfig):
             a, b, len_a, len_b, cfg.sw_match, cfg.sw_mismatch, cfg.sw_gap
         ), False
     la, lb = a.shape[1], b.shape[1]
-    _cuda.require(lb <= _KERNEL_MAX_LB,
-                  f"the CUDA kernel takes LB <= {_KERNEL_MAX_LB}, got {lb}")
     _cuda.require(all(t.is_contiguous() for t in (a, b, len_a, len_b)),
                   "a, b, len_a and len_b must be contiguous")
     out = torch.empty((bsz,), dtype=torch.float32, device=a.device)
     if bsz == 0:
         return out, False
+    lmax = max(la, lb)
+    scratch = (torch.empty((bsz, 2, lmax), dtype=torch.float32, device=a.device)
+               if lmax > _STRIP else None)
     rc = getattr(_cuda.library(), symbol)(
         a.data_ptr(), b.data_ptr(), len_a.data_ptr(), len_b.data_ptr(),
-        out.data_ptr(), bsz, la, lb,
+        out.data_ptr(), 0 if scratch is None else scratch.data_ptr(), bsz, la, lb,
         cfg.sw_match, cfg.sw_mismatch, cfg.sw_gap,
         _cuda.stream_ptr(a.device),
     )
@@ -99,7 +106,7 @@ def _run(symbol: str, a, b, len_a, len_b, cfg: SearchConfig):
 
 def sw_wide(a: torch.Tensor, b: torch.Tensor, len_a: torch.Tensor,
             len_b: torch.Tensor, cfg: SearchConfig) -> torch.Tensor:
-    """K4, one thread per pair (the JAX package's "wide" family)."""
+    """K4, eight lanes per pair (the JAX package's "wide" family)."""
     out, launched = _run("fs_sw", a, b, len_a, len_b, cfg)
     sw_wide.launches += launched
     return out

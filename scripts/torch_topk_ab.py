@@ -38,8 +38,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # (anchor, replacement) edits of csrc/distance_topk.cu for each floor
 _MMA_ONLY = [
-    ("  walk_script(ring, s, ns, a, lane, [&](Acc& acc, int c0) {\n    bool pass = false;",
-     "  int sink = 0;\n  walk_script(ring, s, ns, a, lane, [&](Acc& acc, int c0) {\n"
+    ("  auto epi = [&](Acc& acc, int c0) {\n    bool pass = false;",
+     "  int sink = 0;\n  auto epi = [&](Acc& acc, int c0) {\n"
      "    sink ^= acc[0][0][0] ^ acc[kMT - 1][kNT - 1][3];\n    if (c0 >= 0) return;\n"
      "    bool pass = false;"),
     ("  // the warp's rows are contiguous in the outputs\n",

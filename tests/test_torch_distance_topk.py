@@ -211,3 +211,88 @@ def test_plain_edge_world_matches_jnp(edge, ns_valid, k, gated):
     v, i = _port(edge[0], edge[1], k=k, ns_valid=ns_valid, min_keep=mk)
     ev, ei = expected_edge(edge, ns_valid, k, mk)
     assert np.array_equal(v, ev) and np.array_equal(i, ei)
+
+
+# ---- shapes beyond the engine's: dim a multiple of 128, k above 32
+
+
+@pytest.mark.parametrize("dim,k", [(256, 10), (256, 33), (128, 64), (256, 64), (512, 33)])
+def test_plain_wide_dim_and_large_k_match_pallas(rng, dim, k):
+    """Every slot of the exact top-k equals the Pallas kernel's in
+    interpret mode at dim 256/512 and k 33/64 (the chunked producer and
+    the large-k merge of K2 and K7 on the card); at the engine's
+    threshold the entries at and above it equal the kernel's, with ties
+    across tiles."""
+    q, s = _rand_emb(rng, 128, dim), _rand_emb(rng, 1024, dim)
+    s[100:150] = q[:50]
+    s[700:720] = q[:20]                               # ties across distant columns
+    v, i = _port(q, s, k=k, ns_valid=1000)
+    pv, pi = topk_dot_pallas(jnp.asarray(q), jnp.asarray(s), 1000, k, dim, tile_s=512,
+                             interpret=True)
+    assert np.array_equal(v, np.asarray(pv)) and np.array_equal(i, np.asarray(pi))
+    assert np.array_equal(i[:20, :2], np.stack([np.arange(100, 120), np.arange(700, 720)], 1))
+    # the engine's call: gated, every script row valid
+    thr = 3.5
+    v, i = _port(q, s, k=k, min_keep=thr)
+    pv, pi = topk_dot_pallas(
+        jnp.asarray(q.T.copy()), jnp.asarray(s), 1024, k, dim, tile_s=512, interpret=True,
+        q_transposed=True, min_keep=thr, max_abs_score=6 * 6 * dim,
+    )
+    pv, pi = np.asarray(pv), np.asarray(pi)
+    keep = pv >= thr
+    assert keep[:50].all(axis=0)[0]
+    assert np.array_equal(v[keep], pv[keep]) and np.array_equal(i[keep], pi[keep])
+    assert not ((v >= thr) & ~keep).any()
+    for merge in ("rows", "insert"):
+        rv, ri = topk_dot(torch.from_numpy(q), torch.from_numpy(s), 1024, k,
+                          min_keep=thr, merge=merge)
+        assert np.array_equal(rv.numpy(), v) and np.array_equal(ri.numpy(), i)
+
+
+class _FakeLib:
+    """Records the kernel entry points called; every launch succeeds."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("dim,k,merge,min_keep,entry", [
+    (256, 10, "insert", 3.5, "fs_topk"),
+    (512, 10, "rows", 3.5, "fs_topk_rows"),
+    (128, 33, "insert", -float("inf"), "fs_topk"),
+    (128, 1000, "rows", 3.5, "fs_topk_rows"),
+    (256, 64, "rows", -float("inf"), "fs_topk"),
+    (1024, 256, "insert", 3.5, "fs_topk"),
+])
+def test_wrapper_launches_any_dim_and_k(monkeypatch, dim, k, merge, min_keep, entry):
+    """dim any multiple of 128 and k above 32 reach K2 or K7 with their
+    shape; a dim the kernels cannot tile is still refused."""
+    from fandom_search_tpu_torch.ops import _cuda
+    from fandom_search_tpu_torch.ops import distance_topk as dt
+
+    lib = _FakeLib()
+    monkeypatch.setattr(_cuda, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(_cuda, "library", lambda: lib)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(dt.topk_dot, "launches", 0)
+    monkeypatch.setattr(dt.topk_dot, "launches_rows", 0)
+    q = torch.zeros((7, dim), dtype=torch.int8)
+    s = torch.zeros((300, dim), dtype=torch.int8)
+    v, i = topk_dot(q, s, 290, k, min_keep=min_keep, merge=merge)
+    assert v.shape == i.shape == (7, k)
+    (name, args), = lib.calls
+    assert name == entry
+    assert args[2] == v.data_ptr() and args[3] == i.data_ptr()
+    assert args[4:10] == (7, 290, dim, k, dt.min_keep_int(min_keep, dim), 1.0 / dim)
+    rows = entry == "fs_topk_rows"
+    assert (dt.topk_dot.launches, dt.topk_dot.launches_rows) == (int(not rows), int(rows))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        topk_dot(torch.zeros((7, 192), dtype=torch.int8),
+                 torch.zeros((300, 192), dtype=torch.int8), 290, k)
+    assert len(lib.calls) == 1

@@ -99,3 +99,40 @@ def test_kernel_build_fails_loudly_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_cuda, "BUILD", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _cuda.build()
+
+
+class _FakeLib:
+    """Records the kernel entry points called; every launch succeeds."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("n,dim", [(6, 128), (3, 256), (9, 256), (50, 256), (1, 1024)])
+def test_embed_wrapper_launches_any_width(monkeypatch, n, dim):
+    """Every n >= 1 and dim the JAX config takes reach K1 in one launch
+    (the multipliers stay in registers up to n = 12, in L1 above), with
+    no shared-memory bound on n * dim."""
+    from fandom_search_tpu_torch.ops import embed as embed_mod
+
+    lib = _FakeLib()
+    monkeypatch.setattr(_cuda, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(_cuda, "library", lambda: lib)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(embed_mod, "embed_shingles_plain", None)
+    tok = torch.zeros(1000, dtype=torch.int32)
+    mults = _mults(ShingleConfig(n=n, dim=dim, seed=3))
+    before = embed_shingles.launches
+    out = embed_shingles(tok, mults)
+    assert out.shape == (1000 - n + 1, dim) and out.dtype == torch.int8
+    (name, args), = lib.calls
+    assert name == "fs_embed"
+    assert args[:3] == (tok.data_ptr(), mults.data_ptr(), out.data_ptr())
+    assert args[3:] == (1000 - n + 1, n, dim, 0)
+    assert embed_shingles.launches == before + 1

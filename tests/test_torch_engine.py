@@ -270,3 +270,43 @@ def test_cli_flags_and_missing_cuda(tmp_path, monkeypatch, capsys):
             "-o", str(tmp_path / "x.csv"),
         ])
     assert "CUDA is not available" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("shingle_kw,search_kw", [
+    ({"dim": 256}, {"batch_queries": 1 << 14}),
+    ({}, {"max_line_tokens": 96, "batch_queries": 1 << 14}),
+    ({"dim": 256}, {"max_line_tokens": 130, "k": 40, "batch_queries": 1 << 14}),
+], ids=["dim256", "lb96", "dim256-lb130-k40"])
+def test_engine_wide_configs_match_jax(shingle_kw, search_kw):
+    """Index-bound widths the CUDA path now takes (dim 256: K1 and K2 at
+    dim 256; max_line_tokens 96 and 130: K4 past 64 columns; k 40: K2's
+    large-k merge): rows equal the JAX engine's and the NumPy oracle's,
+    on a script with lines longer than 64 tokens quoted past their 64th
+    word."""
+    rng = np.random.default_rng(29)
+    vocab = make_vocab(rng, 900)
+    long_lines = [" ".join(vocab[i] for i in rng.integers(0, len(vocab), n))
+                  for n in (90, 120)]
+    script_text = make_script(rng, vocab, num_lines=12, words_per_line=(7, 13))
+    script_text += f"BOB: {long_lines[0]}\nEVE: {long_lines[1]}\n"
+    cfg = dataclasses.replace(
+        CFG, shingle=dataclasses.replace(CFG.shingle, **shingle_kw),
+        search=dataclasses.replace(CFG.search, **search_kw))
+    pcfg = dataclasses.replace(
+        PCFG, shingle=dataclasses.replace(PCFG.shingle, **shingle_kw),
+        search=dataclasses.replace(PCFG.search, **search_kw))
+    lines = parse_script(script_text)
+    index = build_script_index(lines, cfg.shingle, cfg.search)
+    works, planted = make_corpus_with_quotes(
+        rng, [ln.text for ln in lines], num_works=5, words_per_work=250,
+        quotes_per_work=2, num_edits=0, vocab=vocab,
+    )
+    filler = " ".join(vocab[i] for i in rng.integers(0, len(vocab), 80))
+    tail = " ".join(long_lines[1].split()[70:110])
+    works["w_long"] = f"{filler} {tail} {filler}"
+    rows, stats = SearchEngine.from_index(index, pcfg, device="cpu").search_works(works)
+    oracle_rows, _ = search_works_oracle(works, index, cfg)
+    jrows, jstats = JaxEngine(index, cfg, use_pallas=False).search_works(works)
+    assert rows and _rows(rows) == _rows(oracle_rows) == _rows(jrows)
+    assert any(r.work_id == "w_long" for r in rows)
+    assert stats.num_candidates == jstats.num_candidates

@@ -81,6 +81,19 @@ def test_plain_hamming_exact_matches_pallas(rng, bits, r, ns_valid):
         assert np.array_equal(got[1][:40, 1], np.arange(600, 640))
 
 
+@pytest.mark.parametrize("r,ns_valid", [(1100, 1500), (1030, 900)])
+def test_plain_hamming_wide_codes_long_lists_match_pallas(rng, r, ns_valid):
+    """bits 4096 with R above 1024 (K6's wide-code route and its lists
+    longer than 1024 on the card): every slot equals the Pallas kernel's
+    in interpret mode, ties to the lowest column, padding past ns_valid."""
+    q, st = _world(rng, 4096, nq=256, ns_pad=2048)
+    got = _port_hamming(q, st, ns_valid, r, 4096)
+    want = _jax_hamming(q, st, ns_valid, r, 4096)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert (got[0][:, :min(r, ns_valid)] > lsh.NEG_INF).all()
+    assert (got[0][:, ns_valid:] == lsh.NEG_INF).all()
+
+
 @pytest.mark.parametrize("bits", [256, 1024])
 def test_plain_hamming_gated_matches_pallas_above_threshold(rng, bits):
     """With min_keep_sim the entries at or above it equal the JAX
@@ -219,7 +232,7 @@ def test_hamming_wrapper_launches_k6(fake_cuda, mks, h_max):
     assert v.shape == i.shape == (5, 256)
     (name, args), = fake_cuda.calls
     assert name == "fs_hamming_topk"
-    assert args[4:13] == (5, 32, 2048, 2000, 256, 1024, h_max, 1, 0)
+    assert args[4:15] == (0, 0, 5, 32, 2048, 2000, 256, 1024, h_max, 1, 0)
     assert lsh.hamming_topk.launches == before + 1
 
 
@@ -234,7 +247,7 @@ def test_hamming_wrapper_routes(fake_cuda, bits, mma, route):
     st = torch.zeros((w, 600), dtype=torch.int32)
     lsh.hamming_topk(q, st, 600, 16, bits, mma=mma)
     (name, args), = fake_cuda.calls
-    assert args[11] == route
+    assert args[13] == route
 
 
 def test_hamming_wrapper_refuses_bad_routes(fake_cuda):
@@ -265,16 +278,39 @@ def test_hamming_wrapper_rejects_bad_arguments(monkeypatch):
                  (q[:, :7], st, 512, 16, 256)):
         with pytest.raises(ValueError):
             lsh.hamming_topk(*args)
-    # the kernel's own limits, checked before any launch
+    # the kernel's own limit, checked before any launch: the JAX package's
+    # packing holds bits <= 8192
     lib = _FakeLib()
     monkeypatch.setattr(_cuda, "on_cpu", lambda *t: False)
     monkeypatch.setattr(_cuda, "library", lambda: lib)
-    with pytest.raises(ValueError, match="rerank <= 1024"):
-        lsh.hamming_topk(q, st, 512, 1025, 256)
-    q2 = torch.zeros((4, 65), dtype=torch.int32)
-    with pytest.raises(ValueError, match="bits <= 2048"):
-        lsh.hamming_topk(q2, torch.zeros((65, 512), dtype=torch.int32), 512, 16, 2080)
+    q2 = torch.zeros((4, 257), dtype=torch.int32)
+    with pytest.raises(ValueError, match="bits <= 8192"):
+        lsh.hamming_topk(q2, torch.zeros((257, 512), dtype=torch.int32), 512, 16, 8224)
     assert not lib.calls
+
+
+@pytest.mark.parametrize("nq,bits,r,mma,route,rows,launches", [
+    (4, 256, 1025, None, 1, 0, 1),         # R above 1024: the same launch
+    (4, 2080, 16, None, 0, 64, 1),         # wide codes on s8: a histogram scratch
+    (5000, 4096, 2048, None, 1, 4096, 2),  # wide on b1, rows in two chunks
+    (100, 8192, 300, "s8", 0, 128, 1),
+])
+def test_hamming_wrapper_wide_codes_and_long_lists(fake_cuda, nq, bits, r, mma, route, rows,
+                                                   launches):
+    """bits up to 8192 and any R reach K6: codes wider than 2048 bits pass
+    an int32 [rows, h_max + 1] scratch and its row count, and the launch
+    counter grows by the launches the kernel walks the rows in."""
+    w = bits // 32
+    q = torch.zeros((nq, w), dtype=torch.int32)
+    st = torch.zeros((w, 3000), dtype=torch.int32)
+    before = lsh.hamming_topk.launches
+    v, i = lsh.hamming_topk(q, st, 2999, r, bits, mma=mma)
+    assert v.shape == i.shape == (nq, r)
+    (name, args), = fake_cuda.calls
+    assert name == "fs_hamming_topk"
+    assert (args[4] != 0) == (rows > 0) and args[5] == rows
+    assert args[6:14] == (nq, w, 3000, 2999, r, bits, bits, route)
+    assert lsh.hamming_topk.launches == before + launches
 
 
 def test_attach_refuses_k_above_rerank():

@@ -390,6 +390,40 @@ def test_cli_index_lsh_and_search_index_lsh(tmp_path, cli_inputs, capsys, no_jax
     assert (tmp_path / "p.csv").read_bytes() == (tmp_path / "o.csv").read_bytes()
 
 
+def test_cli_shingle_dim_matches_jax(tmp_path, cli_inputs, capsys, no_jax_cache):
+    """--shingle-dim 256 behaves as the JAX CLI's: the index stores dim
+    256 (meta.json bytes equal), search --index writes the JAX CLI's CSV
+    bytes, a --shingle-dim laid over a loaded index is ignored with the
+    same warning, and a search from the script files at dim 256 finds
+    the same rows."""
+    _, scripts, wdir = cli_inputs
+    out = {}
+    for who, main, dev in (("jax", jcli.main, ["--cpu"]),
+                           ("port", cli.main, ["--device", "cpu"])):
+        d = tmp_path / who
+        assert main(["index", scripts[0], "-o", str(d / "idx"), "--shingle-dim", "256",
+                     *dev]) == 0
+        capsys.readouterr()
+        search_dev = dev + ["--batch-queries", str(BATCH)] + (
+            ["--no-pallas"] if who == "jax" else [])
+        assert main(["search", str(wdir), "--index", str(d / "idx"), "-o", str(d / "m.csv"),
+                     "--shingle-dim", "128", *search_dev]) == 0
+        cap = capsys.readouterr()
+        out[who] = (json.loads(cap.out.strip().splitlines()[-1]),
+                    [ln for ln in cap.err.splitlines() if "--shingle-dim" in ln])
+    jd, pd_ = tmp_path / "jax", tmp_path / "port"
+    assert (pd_ / "idx" / "meta.json").read_bytes() == (jd / "idx" / "meta.json").read_bytes()
+    assert json.loads((pd_ / "idx" / "meta.json").read_text())["shingle"]["dim"] == 256
+    assert (pd_ / "m.csv").read_bytes() == (jd / "m.csv").read_bytes()
+    assert out["port"][0]["matches"] == out["jax"][0]["matches"] > 0
+    assert out["port"][1] == out["jax"][1] == [
+        "warning: --shingle-dim 128 ignored; the loaded index was built with dim=256"]
+    _run(cli.main, ["search", str(wdir), scripts[0], "-o", str(tmp_path / "direct.csv"),
+                    "--device", "cpu", "--batch-queries", str(BATCH), "--shingle-dim", "256"],
+         capsys)
+    assert (tmp_path / "direct.csv").read_bytes() == (pd_ / "m.csv").read_bytes()
+
+
 def test_cli_overlay_and_errors(tmp_path, cli_inputs, capsys, monkeypatch):
     """Flags laid over a loaded index behave as the JAX CLI's; a missing
     script and a missing card are refused."""

@@ -115,10 +115,12 @@ def test_plain_sw_matches_lane_major_pallas(rng, variant):
 class _FakeLib:
     def __init__(self):
         self.calls = []
+        self.args = []
 
     def __getattr__(self, name):
         def call(*args):
             self.calls.append(name)
+            self.args.append(args)
             return 0
         return call
 
@@ -130,20 +132,52 @@ class _FakeLib:
 ])
 def test_variant_routes_to_its_kernel(monkeypatch, variant, symbol, counter):
     """fast/r2/dyn launch K5, wide/exitw/slide launch K4; the launching
-    wrapper's counter grows by one, the other's not at all."""
+    wrapper's counter grows by one, the other's not at all.  LB = 64 needs
+    no scratch; LB = 65 reaches the same kernel with a [B, 2, LA] f32
+    scratch of strip-end columns."""
     lib = _FakeLib()
     monkeypatch.setattr(_cuda, "on_cpu", lambda *t: False)
     monkeypatch.setattr(_cuda, "library", lambda: lib)
     monkeypatch.setattr(_cuda, "stream_ptr", lambda device: 0)
     a = torch.zeros((3, LA), dtype=torch.int32)
     ln = torch.zeros((3,), dtype=torch.int32)
+    cfg = dataclasses.replace(PCFG, sw_variant=variant)
     before = {c: getattr(port_sw, c).launches for c in ("sw_lane", "sw_wide")}
-    out = sw_normalized(a, a, ln, ln, dataclasses.replace(PCFG, sw_variant=variant))
+    out = sw_normalized(a, a, ln, ln, cfg)
     assert out.shape == (3,) and lib.calls == [symbol]
     for c, n in before.items():
         assert getattr(port_sw, c).launches == n + (c == counter)
-    with pytest.raises(ValueError, match="LB <= 64"):
-        sw_normalized(a, torch.zeros((3, 65), dtype=torch.int32), ln, ln,
-                      dataclasses.replace(PCFG, sw_variant=variant))
-    assert lib.calls == [symbol]
+    args = lib.args[0]
+    assert args[0] == a.data_ptr() and args[4] == out.data_ptr()
+    assert args[5] == 0 and args[6:9] == (3, LA, LB)
+    b = torch.zeros((3, 65), dtype=torch.int32)
+    out = sw_normalized(a, b, ln, ln, cfg)
+    assert out.shape == (3,) and lib.calls == [symbol, symbol]
+    args = lib.args[1]
+    assert args[1] == b.data_ptr() and args[5] != 0 and args[6:9] == (3, LA, 65)
+    assert args[9:12] == (PCFG.sw_match, PCFG.sw_mismatch, PCFG.sw_gap)
+    assert getattr(port_sw, counter).launches == before[counter] + 2
 
+
+@pytest.mark.parametrize("lb", [65, 96, 130])
+def test_plain_sw_wide_segments_match_jnp_and_pallas(rng, lb):
+    """Segments wider than 64 tokens (max_line_tokens > 64, the strips
+    of K4 and K5 on the card): the plain version equals _sw_best_jnp's
+    batch form, the NumPy verifier and the "wide" Pallas kernel in
+    interpret mode."""
+    bsz, la = 20, 64
+    a = rng.integers(1, 30, size=(bsz, la)).astype(np.uint32)
+    b = rng.integers(1, 30, size=(bsz, lb)).astype(np.uint32)
+    len_a = rng.integers(0, la + 1, size=bsz).astype(np.int32)
+    len_b = rng.integers(0, lb + 1, size=bsz).astype(np.int32)
+    len_a[0], len_b[0] = la, lb
+    len_b[1] = 0
+    for i in range(2, bsz, 2):                 # a's words inside b, past column 64
+        m = int(min(len_a[i], len_b[i] - 40)) if len_b[i] > 40 else 0
+        b[i, 40 : 40 + m] = a[i, :m]
+    got = _port(a, b, len_a, len_b)
+    assert np.array_equal(got, _np(a, b, len_a, len_b))
+    assert np.array_equal(got, np.asarray(sw_normalized_jnp(a, b, len_a, len_b, CFG)))
+    pal = sw_normalized_pallas(a, b, len_a, len_b, CFG, interpret=True, variant="wide")
+    assert np.array_equal(got, np.asarray(pal))
+    assert (got[2::2][len_b[2::2] > 60] > 0.5).any()
