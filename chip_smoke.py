@@ -11,7 +11,8 @@ and time:
 2. build: compiles fandom_search_tpu_torch/csrc/*.cu with nvcc, and
    builds and loads the native tokenizer from the port's own
    native/fastingest.cpp (fails if it does not load).
-3. kernels: K1-K7 against their plain PyTorch versions on the card, at
+3. kernels: K1-K7 (K5 in both its routes) against their plain PyTorch
+   versions on the card, at
    the shapes of the paths, on inputs from the end-to-end world; exact
    equality is required (tolerance 0: every output is an integer or one
    f32 division of integers).  Prints warm times of both, the least
@@ -37,6 +38,17 @@ and time:
    the engine shape gated, 2^14 rows exact at k 10 and 32, and a padding
    batch (the first batch with its last 30% of tokens zero), every slot
    against the plain version; K2 and K7 timed in turns, with TOP/s.
+   K5: the packed route (int16 halves on DPX) at the engine's parameters
+   and the f32 route at match 2.5 / mismatch -1.25 / gap -0.75, each held
+   to its route by the counters, on 8,192 length-sorted 64 x 64 pairs
+   (the packed route also equal to K4), a verify batch shaped as the LSH
+   path's (16,384 pairs, 64-token windows against 6-13-token script
+   segments), unsorted, B 8,191 and 1, widths
+   23 x 11, 100 x 64, 1 x 1, the strip shapes and integral parameters
+   just inside and outside the packed route's range rule; device and
+   event times of K4 and both routes in turns beside the bound (the CUDA
+   cores' non-FMA rates; at integral parameters the packed route's own
+   instruction count, K4's too).
 4. exact end to end: SearchEngine.search_works over the world — a
    2,000-line script (~20k shingles) against 10,000 works of 2,000 words
    with 3 planted quotes each (~20M query shingles, ~20 batches of
@@ -45,9 +57,11 @@ and time:
    found.
 5. LSH end to end: a second engine with the LSH prefilter attached
    (LSHConfig() defaults, sw_variant "fast") over the same world.  K1,
-   K3, K5 and K6 must launch, K2 and K4 must not; every planted quote
-   must be found; the rows must agree with the exact path's on at least
-   95% of them.
+   K3, K5's packed route and K6 must launch, K2, K4 and K5's f32 route
+   must not; every planted quote must be found; the rows must agree with
+   the exact path's on at least 95% of them.  Then the same path over
+   600 works at non-integral parameters: K5's f32 route must launch and
+   the packed route must not; every planted quote in them found.
 6. rows A/B (scripts/merge_rows_ab.py's shape, 2^17 x 2^13, plant
    densities clean, 1% and 5%): topk_dot with merge="rows" (K7) and
    "insert" (K2), counted; K7 equals its plain version in every slot
@@ -97,8 +111,12 @@ KERNELS = (
      "csrc/scan.cu", "fandom_search_tpu/ops/scan.py:61", "exact"),
     ("sw_wide", "K4 smith_waterman", "smith_waterman", "sw_wide", "launches",
      "csrc/smith_waterman.cu", "fandom_search_tpu/ops/smith_waterman.py:452", "exact"),
-    ("sw_lane", "K5 smith_waterman_lane", "smith_waterman", "sw_lane", "launches",
-     "csrc/smith_waterman_lane.cu", "fandom_search_tpu/ops/smith_waterman.py:233", "lsh"),
+    ("sw_lane_i16", "K5 smith_waterman_lane, packed int16 route (DPX)", "smith_waterman",
+     "sw_lane", "launches_i16", "csrc/smith_waterman_lane.cu",
+     "fandom_search_tpu/ops/smith_waterman.py:233", "lsh"),
+    ("sw_lane_f32", "K5 smith_waterman_lane, f32 route", "smith_waterman", "sw_lane",
+     "launches_f32", "csrc/smith_waterman_lane.cu",
+     "fandom_search_tpu/ops/smith_waterman.py:233", "lsh_f32"),
     ("hamming_topk", "K6 hamming_topk", "lsh", "hamming_topk", "launches",
      "csrc/hamming_topk.cu", "fandom_search_tpu/ops/lsh.py:121", "lsh"),
     ("topk_dot_rows", "K7 distance_topk_rows", "distance_topk", "topk_dot",
@@ -109,28 +127,55 @@ KERNELS = (
 EXACT = ("embed_shingles", "topk_dot", "scan1d_i32", "sw_wide")
 PATHS = {
     "exact": EXACT,
-    "lsh": ("embed_shingles", "scan1d_i32", "sw_lane", "hamming_topk"),
+    "lsh": ("embed_shingles", "scan1d_i32", "sw_lane_i16", "hamming_topk"),
+    # the LSH path at non-integral Smith-Waterman parameters: K5's f32 route
+    "lsh_f32": ("embed_shingles", "scan1d_i32", "sw_lane_f32", "hamming_topk"),
     "rows_ab": ("topk_dot", "topk_dot_rows"),
     # index (+ --lsh), search --index (+ --lsh: K6, then K4 verifies)
     "index_search": EXACT + ("hamming_topk",),
     "serve": EXACT,
     "profile": EXACT,
 }
-# NVIDIA H100 SXM peaks (data sheet, dense): HBM bytes/s, int8 tensor-core
-# operations/s, and the CUDA cores' f32 rate
+# NVIDIA H100 SXM peaks (data sheet, dense): HBM bytes/s and int8
+# tensor-core operations/s
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1.979e15
-CUDA_CORE_OPS_S = 67e12
-# 32-bit integer multiplies: 64 lanes an SM a clock on 132 SMs, at the
-# card's boost clock (nvidia-smi clocks.max.sm; set in main)
-INT32_LANES = 132 * 64
+# The CUDA cores' rates, in results a clock an SM, from the table
+# "Throughput of Native Arithmetic Instructions" of NVIDIA's CUDA C++
+# Programming Guide, compute capability 9.0: 32-bit integer add, 32-bit
+# integer multiply and multiply-add, "compare, minimum, maximum" and
+# 32-bit bitwise operations 64; 32-bit floating-point add 128 (the data
+# sheet's 67 TFLOP/s counts an FMA as two operations, and no
+# Smith-Waterman or scan operation is an FMA).  On 132 SMs at the card's
+# boost clock (nvidia-smi clocks.max.sm; set in main).
+SMS = 132
+INT32_LANES = SMS * 64
 INT32_OPS_S = INT32_LANES * 1.98e9
 # worker processes for the NumPy oracle of the serve phase (the card's
 # host has 8 cores)
 ORACLE_PROCS = 8
-# f32 operations per Smith-Waterman cell: two adds, four max, the
-# compare-select of the substitution score
-SW_OPS_PER_CELL = 8
+# A Smith-Waterman cell in f32 (K4, K5's f32 route): four max, the compare
+# and the select of the substitution score at 64 a clock an SM, and two
+# adds at 128; the six set the bound (6 / 64 > 8 / 128 at one issue a
+# clock for each of an SM's four schedulers).
+SW_ALU_OPS_PER_CELL = 6
+# Where the parameters admit K5's packed route (i16_route), the same
+# scores take fewer instructions: per register of two cells
+# (csrc/smith_waterman_lane.cu), three DPX instructions (VIADDMNMX: diag +
+# sub, max(up + gap, .) and max(left + gap, ., 0)), the running best
+# (__vimax3_s16x2 over two cells and a masked __vmaxs2 a row: 0.5625 at
+# sixteen columns a lane) and the substitution score (two compares, two
+# selects, one byte permute), all at the 64 a clock an SM of the table's
+# compare, minimum and maximum row.  K4 at those parameters computes the
+# same function, so it is held to the same bound.
+SW_I16_OPS_PER_PAIR = 8.5625
+# Host sleep at both ends of a profiled span (device_events).  On an H100
+# (scripts/torch_profiler_window.py) kernels sat up to 5.4 ms before their
+# own launch on the trace's clock, and one-call traces of K4 held no kernel
+# 7 times in 1,500 with no sleep, 6 with 1 ms and 0 with 10 ms.
+PROFILE_PAD_S = 0.01
+# the card's name and power limit (nvidia-smi; set in main)
+CARD = ""
 
 
 def phase(name):
@@ -170,6 +215,22 @@ def bound(nbytes: float, ops: float, ops_rate: float):
     t_ops = ops / ops_rate * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def sw_bound(a, b, len_a, len_b, c):
+    """K4's or K5's bound on pairs (a, b) of lengths (len_a, len_b) at the
+    Smith-Waterman parameters of ``c``: the tokens inside the lengths and
+    the lengths read once, the scores written once; the cells at the
+    packed route's operations where ``i16_route`` admits the parameters,
+    else at the f32 cell's."""
+    from fandom_search_tpu_torch.ops.smith_waterman import i16_route
+
+    na = len_a.long().clamp(0, a.shape[1])
+    nb = len_b.long().clamp(0, b.shape[1])
+    cells = int((na * nb).sum())
+    packed = i16_route(c.sw_match, c.sw_mismatch, c.sw_gap, a.shape[1], b.shape[1])
+    per_cell = SW_I16_OPS_PER_PAIR / 2 if packed else SW_ALU_OPS_PER_CELL
+    return bound(int(na.sum() + nb.sum()) * 4 + a.shape[0] * 12, per_cell * cells, INT32_OPS_S)
 
 
 def counters():
@@ -334,6 +395,197 @@ def kernel_checks(engine, works, seed: int):
     # K4 on 8192 length-sorted 64 x 64 pairs with len-0 and ragged rows
     t0 = phase("K4 smith_waterman")
     bsz, la, lb = 8192, cfg.search.window_tokens, cfg.search.max_line_tokens
+    A, B, LA_, LB_, cells = sw_engine_pairs(rng, dev, bsz, la, lb)
+    xc = cfg.search
+    g = sw_wide(A, B, LA_, LB_, xc)
+    sync()
+    w = sw_normalized_plain(A, B, LA_, LB_, xc.sw_match, xc.sw_mismatch, xc.sw_gap)
+    sync()
+    err = float((g - w).abs().max())
+    check(torch.equal(g, w), f"K4 differs from plain: max |err| {err}")
+    plain_ms = cuda_ms(lambda: sw_normalized_plain(
+        A, B, LA_, LB_, xc.sw_match, xc.sw_mismatch, xc.sw_gap), 3)
+    shape = f"B={bsz} {la}x{lb} length-sorted, {cells} cells"
+    res["sw_wide"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: sw_wide(A, B, LA_, LB_, xc), 20),
+        plain_ms=plain_ms, library_ms=None, shape=shape, **sw_bound(A, B, LA_, LB_, xc),
+    )
+    done("K4 smith_waterman", t0, str(res["sw_wide"]))
+
+    res.update(sw_lane_check(xc, (A, B, LA_, LB_), cells, g, w, res["sw_wide"], rng))
+
+    res["hamming_topk"] = hamming_check(engine, got)
+    return res
+
+
+def sw_lane_check(xc, pairs, cells, k4_out, want, k4_res, rng):
+    """K5's two routes against the plain version in every slot: the packed
+    route (``fs_sw_lane_i16``) at the engine's parameters and the f32
+    route (``fs_sw_lane``) at match 2.5, mismatch -1.25, gap -0.75, each
+    checked to take its route by the counters; on the 8,192 length-sorted
+    pairs (the packed route also equal to K4), a verify batch as the LSH
+    path makes them (``sw_verify_batch``; K4 too), the 8,192 pairs
+    unsorted, B 8,191 and 1, widths 23 x 11, 100 x 64 and 1 x 1, the strip
+    shapes LA 64/100 x LB 65/96/128/200 (timed in turns with K4), and
+    integral parameters just inside and just outside the packed route's
+    range rule.  Device and event times of K4 and both routes in turns at
+    the 8,192-pair shape, and device times on the verify batch, beside
+    their bounds."""
+    import dataclasses
+
+    import torch
+
+    from fandom_search_tpu_torch.ops.smith_waterman import (
+        i16_route, sw_lane, sw_normalized_plain, sw_wide,
+    )
+
+    t0 = phase("K5 smith_waterman_lane")
+    A, B, LA_, LB_ = pairs
+    dev = A.device
+    xf = dataclasses.replace(xc, sw_match=2.5, sw_mismatch=-1.25, sw_gap=-0.75)
+    check(i16_route(xc.sw_match, xc.sw_mismatch, xc.sw_gap, A.shape[1], B.shape[1])
+          and not i16_route(xf.sw_match, xf.sw_mismatch, xf.sw_gap, A.shape[1], B.shape[1]),
+          "the engine's parameters must take the packed route, 2.5/-1.25/-0.75 the f32 one")
+
+    def plain(a, b, la, lb, c):
+        return sw_normalized_plain(a, b, la, lb, c.sw_match, c.sw_mismatch, c.sw_gap)
+
+    def routed(a, b, la, lb, c, what, want=None):
+        """K5 on the route ``i16_route`` names: equal to plain in every
+        slot, counted once on that route and never on the other."""
+        packed = i16_route(c.sw_match, c.sw_mismatch, c.sw_gap, a.shape[1], b.shape[1])
+        route = "packed" if packed else "f32"
+        want = plain(a, b, la, lb, c) if want is None else want
+        n16, n32 = sw_lane.launches_i16, sw_lane.launches_f32
+        got = sw_lane(a, b, la, lb, c)
+        torch.cuda.synchronize()
+        moved = (sw_lane.launches_i16 - n16, sw_lane.launches_f32 - n32)
+        check(moved == ((1, 0) if packed else (0, 1)),
+              f"K5 on {what} at {c.sw_match}/{c.sw_mismatch}/{c.sw_gap}: counters moved "
+              f"{moved}, not once on the {route} route")
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        check(torch.equal(got, want), f"K5 ({route} route) differs from plain on {what} "
+                                      f"at {c.sw_match}/{c.sw_mismatch}/{c.sw_gap}: "
+                                      f"max |err| {err}")
+        return got, err
+
+    bsz = A.shape[0]
+    g16, e16 = routed(A, B, LA_, LB_, xc, f"{bsz} sorted pairs", want)
+    check(torch.equal(g16, k4_out), "K5's packed route differs from K4")
+    _, e32 = routed(A, B, LA_, LB_, xf, f"{bsz} sorted pairs")
+    cases = [f"{bsz} sorted"]
+    # ragged batches and widths, both routes
+    VA, VB, VLA, VLB, vcells = sw_verify_batch(rng, dev)
+    edge = {
+        "verify batch": (VA, VB, VLA, VLB),
+        f"{bsz} unsorted": sw_engine_pairs(rng, dev, bsz=bsz, sort=False)[:4],
+        f"B {bsz - 1}": sw_engine_pairs(rng, dev, bsz=bsz - 1)[:4],
+        "B 1": sw_engine_pairs(rng, dev, bsz=1)[:4],
+    }
+    widths = {}  # other operand widths the wrappers take, K4's too
+    la = A.shape[1]
+    for wa, wb in ((23, 11), (100, 64), (1, 1)):
+        a2, b2 = A[:, :wa].contiguous(), B[:, :wb].contiguous()
+        if wa > la:
+            a2 = torch.cat([A, A[:, : wa - la]], dim=1).contiguous()
+        widths[f"{wa}x{wb}"] = (a2, b2, LA_.clamp(max=wa), LB_.clamp(max=wb))
+    for what, (a2, b2, la2, lb2) in {**edge, **widths}.items():
+        w2, e = routed(a2, b2, la2, lb2, xc, what)
+        e16 = max(e16, e)
+        e32 = max(e32, routed(a2, b2, la2, lb2, xf, what)[1])
+        if what in widths or what == "verify batch":
+            check(torch.equal(sw_wide(a2, b2, la2, lb2, xc), w2), f"K4 differs from plain at {what}")
+        cases.append(what)
+    # integral parameters just inside and just outside the range rule
+    # (max |p| * (LA + LB + 1) <= 32767), and positive mismatch and gap
+    for (a2, b2, la2, lb2), what in ((pairs, "64x64"),
+                                     (sw_pairs(rng, 1024, 100, 200, dev)[:4], "100x200")):
+        edge_p = 32767 // (a2.shape[1] + b2.shape[1] + 1)
+        for m, x, gp, packed in ((edge_p, -1, -1, True), (edge_p + 1, -1, -1, False),
+                                 (2, 1, 1, True)):
+            c = dataclasses.replace(xc, sw_match=float(m), sw_mismatch=float(x), sw_gap=float(gp))
+            check(i16_route(c.sw_match, c.sw_mismatch, c.sw_gap, a2.shape[1], b2.shape[1])
+                  == packed, f"i16_route at {m}/{x}/{gp} on {what} is not {packed}")
+            routed(a2, b2, la2, lb2, c, what)
+            cases.append(f"{what} at {m}/{x}/{gp} ({'packed' if packed else 'f32'})")
+    # segments wider than 64 tokens (max_line_tokens > 64): strips, both
+    # routes and K4, timed in turns (K4, packed, f32, f32, packed, K4)
+    wide = {}
+    for wa in (64, 100):
+        for wb in (65, 96, 128, 200):
+            A2, B2, LA2, LB2, cells2 = sw_pairs(rng, 4096, wa, wb, dev)
+            w2, e = routed(A2, B2, LA2, LB2, xc, f"LA {wa} x LB {wb}")
+            e16 = max(e16, e)
+            e32 = max(e32, routed(A2, B2, LA2, LB2, xf, f"LA {wa} x LB {wb}")[1])
+            check(torch.equal(sw_wide(A2, B2, LA2, LB2, xc), w2),
+                  f"K4 differs from plain at LA {wa}, LB {wb}")
+            t = {"k4": [], "i16": [], "f32": []}
+            for key, fn, c in (("k4", sw_wide, xc), ("i16", sw_lane, xc), ("f32", sw_lane, xf),
+                               ("f32", sw_lane, xf), ("i16", sw_lane, xc), ("k4", sw_wide, xc)):
+                t[key].append(cuda_ms(lambda: fn(A2, B2, LA2, LB2, c), 10))
+            wide[f"{wa}x{wb}"] = dict(k4_ms=min(t["k4"]), k5_i16_ms=min(t["i16"]),
+                                      k5_f32_ms=min(t["f32"]), cells=cells2)
+            cases.append(f"LA {wa} x LB {wb}")
+    print(f"[K5 smith_waterman_lane] both routes equal to plain in every slot on: "
+          f"{'; '.join(cases)}; strips (event ms, in turns with K4) {wide}", flush=True)
+
+    # times at the 8,192-pair shape and on the verify batch, in turns: K4,
+    # packed, f32, f32, packed, K4; device ms from the profiler (one kernel,
+    # no memset a call) and event ms
+    calls = {"k4": lambda: sw_wide(A, B, LA_, LB_, xc),
+             "i16": lambda: sw_lane(A, B, LA_, LB_, xc),
+             "f32": lambda: sw_lane(A, B, LA_, LB_, xf)}
+    vcalls = {"k4": lambda: sw_wide(VA, VB, VLA, VLB, xc),
+              "i16": lambda: sw_lane(VA, VB, VLA, VLB, xc),
+              "f32": lambda: sw_lane(VA, VB, VLA, VLB, xf)}
+    dev_ms = {k: [] for k in calls}
+    ev_ms = {k: [] for k in calls}
+    vdev_ms = {k: [] for k in calls}
+    for key in ("k4", "i16", "f32", "f32", "i16", "k4"):
+        dev_ms[key].append(one_kernel_ms(calls[key], f"sw {key}"))
+        ev_ms[key].append(cuda_ms(calls[key], 20))
+        vdev_ms[key].append(one_kernel_ms(vcalls[key], f"sw {key} on the verify batch"))
+    # the packed route (and K4) at the engine's integral parameters: the
+    # packed instructions; the f32 route at 2.5/-1.25/-0.75: the f32 cell's
+    b16, b32 = sw_bound(A, B, LA_, LB_, xc), sw_bound(A, B, LA_, LB_, xf)
+    vb16 = sw_bound(VA, VB, VLA, VLB, xc)
+    base = dict(plain_ms=k4_res["plain_ms"], library_ms=None)
+    out = {
+        "sw_lane_i16": dict(
+            max_abs_err=e16, ms=min(ev_ms["i16"]), device_ms=min(dev_ms["i16"]),
+            runs_device_ms=dev_ms["i16"], runs_ms=ev_ms["i16"], shape=k4_res["shape"],
+            verify_batch_device_ms=min(vdev_ms["i16"]), verify_batch_bound_ms=vb16["bound_ms"],
+            new_shapes=wide, **base, **b16),
+        "sw_lane_f32": dict(
+            max_abs_err=e32, ms=min(ev_ms["f32"]), device_ms=min(dev_ms["f32"]),
+            runs_device_ms=dev_ms["f32"], runs_ms=ev_ms["f32"],
+            shape=k4_res["shape"] + ", match 2.5, mismatch -1.25, gap -0.75",
+            verify_batch_device_ms=min(vdev_ms["f32"]), new_shapes=wide, **base, **b32),
+    }
+    k4_res.update(device_ms=min(dev_ms["k4"]), runs_device_ms=dev_ms["k4"],
+                  runs_ms_in_turns=ev_ms["k4"], verify_batch_device_ms=min(vdev_ms["k4"]),
+                  new_shapes=wide)
+    print(json.dumps({"sw_times_8192": {
+        "card": CARD, "cells": cells,
+        "bound_ms": {"k4 and packed at 2/-1/-1 (packed instructions)": b16["bound_ms"],
+                     "f32 route at 2.5/-1.25/-0.75 (f32 cell)": b32["bound_ms"]},
+        "device_ms": dev_ms, "event_ms": ev_ms,
+        "verify_batch": {"pairs": VA.shape[0], "live": int((VLB > 0).sum()), "cells": vcells,
+                         "bound_ms": vb16["bound_ms"], "bound_by": vb16["bound_by"],
+                         "device_ms": vdev_ms}}}), flush=True)
+    done("K5 smith_waterman_lane", t0, f"packed {out['sw_lane_i16']}; f32 {out['sw_lane_f32']}")
+    return out
+
+
+def sw_engine_pairs(rng, dev, bsz: int = 8192, la: int = 64, lb: int = 64, sort: bool = True):
+    """``bsz`` pairs of at most la x lb with len-0 and full rows and a's
+    first words equal to b's in every third pair, sorted by -(len_a +
+    len_b) as the engine's ``verify_pairs`` sorts them (or not); (a, b,
+    len_a, len_b) on ``dev`` and the cells they need."""
+    import numpy as np
+    import torch
+
     a = rng.integers(1, 60, size=(bsz, la)).astype(np.uint32)
     b = rng.integers(1, 60, size=(bsz, lb)).astype(np.uint32)
     len_a = rng.integers(0, la + 1, size=bsz).astype(np.int32)
@@ -344,79 +596,43 @@ def kernel_checks(engine, works, seed: int):
     for i in range(192, bsz, 3):
         m = int(min(len_a[i], len_b[i]))
         a[i, :m] = b[i, :m]
-    order = np.argsort(-(len_a + len_b), kind="stable")
+    order = (np.argsort(-(len_a + len_b), kind="stable") if sort
+             else rng.permutation(bsz))
     to_dev = lambda x: torch.from_numpy(np.ascontiguousarray(x[order]).view(np.int32)).to(dev)  # noqa: E731
-    A, B, LA_, LB_ = to_dev(a), to_dev(b), to_dev(len_a), to_dev(len_b)
-    xc = cfg.search
-    g = sw_wide(A, B, LA_, LB_, xc)
-    sync()
-    w = sw_normalized_plain(A, B, LA_, LB_, xc.sw_match, xc.sw_mismatch, xc.sw_gap)
-    sync()
-    err = float((g - w).abs().max())
-    check(torch.equal(g, w), f"K4 differs from plain: max |err| {err}")
-    plain_ms = cuda_ms(lambda: sw_normalized_plain(
-        A, B, LA_, LB_, xc.sw_match, xc.sw_mismatch, xc.sw_gap), 3)
-    # the cells these pairs need, and a and b read once
     cells = int((np.minimum(len_a, la).astype(np.int64) * np.minimum(len_b, lb)).sum())
-    sw_bound = bound(A.numel() * 4 + B.numel() * 4 + bsz * 12,
-                     SW_OPS_PER_CELL * cells, CUDA_CORE_OPS_S)
-    shape = f"B={bsz} {la}x{lb} length-sorted, {cells} cells"
-    res["sw_wide"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: sw_wide(A, B, LA_, LB_, xc), 20),
-        plain_ms=plain_ms, library_ms=None, shape=shape, **sw_bound,
-    )
-    done("K4 smith_waterman", t0, str(res["sw_wide"]))
+    return to_dev(a), to_dev(b), to_dev(len_a), to_dev(len_b), cells
 
-    # K5 on the same pairs: equal to the plain version and to K4
-    t0 = phase("K5 smith_waterman_lane")
-    g5 = sw_lane(A, B, LA_, LB_, xc)
-    sync()
-    err = float((g5 - w).abs().max())
-    check(torch.equal(g5, w), f"K5 differs from plain: max |err| {err}")
-    check(torch.equal(g5, g), "K5 differs from K4")
-    res["sw_lane"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: sw_lane(A, B, LA_, LB_, xc), 20),
-        plain_ms=plain_ms, library_ms=None, shape=shape, **sw_bound,
-    )
-    # the two designs side by side, in turns; and their device times from
-    # the profiler (a call's event time holds its wrapper's host time when
-    # that is longer than the kernel)
-    res["sw_lane"]["k4_ms_beside"] = cuda_ms(lambda: sw_wide(A, B, LA_, LB_, xc), 20)
-    res["sw_wide"]["k5_ms_beside"] = cuda_ms(lambda: sw_lane(A, B, LA_, LB_, xc), 20)
-    res["sw_wide"]["device_ms"] = one_kernel_ms(lambda: sw_wide(A, B, LA_, LB_, xc), "sw_wide")
-    res["sw_lane"]["device_ms"] = one_kernel_ms(lambda: sw_lane(A, B, LA_, LB_, xc), "sw_lane")
-    # other operand widths the wrappers take: narrower, and a wider than b
-    for wa, wb in ((23, 11), (100, 64), (1, 1)):
-        a2, b2 = A[:, :wa].contiguous(), B[:, :wb].contiguous()
-        if wa > la:
-            a2 = torch.cat([A, A[:, : wa - la]], dim=1).contiguous()
-        la2, lb2 = LA_.clamp(max=wa), LB_.clamp(max=wb)
-        w2 = sw_normalized_plain(a2, b2, la2, lb2, xc.sw_match, xc.sw_mismatch, xc.sw_gap)
-        check(torch.equal(sw_lane(a2, b2, la2, lb2, xc), w2)
-              and torch.equal(sw_wide(a2, b2, la2, lb2, xc), w2),
-              f"K5 or K4 differs from plain at {wa}x{wb}")
-    # segments wider than 64 tokens (max_line_tokens > 64): strips
-    wide = {}
-    for wa in (64, 100):
-        for wb in (65, 96, 128, 200):
-            A2, B2, LA2, LB2, cells2 = sw_pairs(rng, 4096, wa, wb, dev)
-            w2 = sw_normalized_plain(A2, B2, LA2, LB2, xc.sw_match, xc.sw_mismatch, xc.sw_gap)
-            check(torch.equal(sw_wide(A2, B2, LA2, LB2, xc), w2)
-                  and torch.equal(sw_lane(A2, B2, LA2, LB2, xc), w2),
-                  f"K4 or K5 differs from plain at LA {wa}, LB {wb}")
-            t = {"k4": [], "k5": []}
-            for key, fn in (("k4", sw_wide), ("k5", sw_lane), ("k5", sw_lane), ("k4", sw_wide)):
-                t[key].append(cuda_ms(lambda: fn(A2, B2, LA2, LB2, xc), 10))
-            wide[f"{wa}x{wb}"] = dict(k4_ms=min(t["k4"]), k5_ms=min(t["k5"]), cells=cells2)
-    res["sw_wide"]["new_shapes"] = res["sw_lane"]["new_shapes"] = wide
-    print(f"[K5 smith_waterman_lane] LA 64/100 x LB 65/96/128/200, 4096 pairs each: K4 and "
-          f"K5 equal to plain; {wide}", flush=True)
-    done("K5 smith_waterman_lane", t0, str(res["sw_lane"]))
 
-    res["hamming_topk"] = hamming_check(engine, got)
-    return res
+# The script segments' lengths in the batches the LSH path hands K5 in this
+# world (10,000 works; scripts/torch_sw_i16_ab.py on an H100): 20 batches
+# of 16,384 pairs, 5,102-13,512 of them live, every window 64 tokens.
+VERIFY_LEN_B = {6: 18218, 7: 21842, 8: 27827, 9: 30870, 10: 35790, 11: 36849, 12: 41851,
+                13: 44314}
+
+
+def sw_verify_batch(rng, dev, bsz: int = 16384, live: int = 13250):
+    """A batch as the LSH path's ``verify_pairs`` hands K5: ``live`` pairs
+    of a 64-token window against a 64-wide script segment of 6-13 tokens
+    (in VERIFY_LEN_B's proportions; the segment inside the window in every
+    third pair), the rest empty, sorted by -(len_a + len_b); (a, b, len_a,
+    len_b) on ``dev`` and the cells they need."""
+    import numpy as np
+    import torch
+
+    lens = np.array(sorted(VERIFY_LEN_B))
+    freq = np.array([VERIFY_LEN_B[k] for k in lens], dtype=np.float64)
+    a = rng.integers(1, 60, size=(bsz, 64)).astype(np.uint32)
+    b = rng.integers(1, 60, size=(bsz, 64)).astype(np.uint32)
+    len_a = np.zeros(bsz, np.int32)
+    len_b = np.zeros(bsz, np.int32)
+    len_a[:live] = 64
+    len_b[:live] = rng.choice(lens, size=live, p=freq / freq.sum())
+    for i in range(0, live, 3):
+        a[i, 20 : 20 + len_b[i]] = b[i, : len_b[i]]
+    order = np.argsort(-(len_a + len_b), kind="stable")
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x[order]).view(np.int32)).to(dev)  # noqa: E731
+    cells = int((len_a.astype(np.int64) * len_b).sum())
+    return t(a), t(b), t(len_a), t(len_b), cells
 
 
 def sw_pairs(rng, bsz, la, lb, dev):
@@ -669,23 +885,27 @@ def hamming_wide_check(engine, q_emb):
 
 def device_events(fn, reps: int = 1):
     """The kernel and memset events of ``reps`` warm calls of ``fn``,
-    from a torch.profiler Chrome trace (durations in us)."""
+    from a torch.profiler Chrome trace (durations in us).  The host sleeps
+    PROFILE_PAD_S after the profiler starts and again after the calls: the
+    trace's device clock can sit ms off the host's, and the profiler drops
+    device events that fall outside its capture window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     with tempfile.TemporaryDirectory() as d:
         path = Path(d) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text()).get("traceEvents", [])
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    memsets = [e for e in events if e.get("cat") == "gpu_memset"]
-    return kernels, memsets
+    return ([e for e in events if e.get("cat") == "kernel"],
+            [e for e in events if e.get("cat") == "gpu_memset"])
 
 
 def one_kernel_ms(fn, what: str, reps: int = 50) -> float:
@@ -753,7 +973,8 @@ def scan_check(dev, rng):
                                         "nonzero_compact"),
         compact_plain_ms=cuda_ms(lambda: nonzero_compact_plain(mask_b, size), 50),
         shape=f"N={mask.numel()} add; compaction N={mask.numel()} 1% set size={size}",
-        **bound(mask.numel() * 8, mask.numel(), CUDA_CORE_OPS_S),
+        # one 32-bit integer add an element
+        **bound(mask.numel() * 8, mask.numel(), INT32_OPS_S),
     )
     lib_kernels, _ = device_events(lambda: torch.cumsum(mask, 0, dtype=torch.int32), 50)
     out["library_device_ms"] = sum(float(e["dur"]) for e in lib_kernels) / 50 / 1e3
@@ -969,6 +1190,40 @@ def lsh_end_to_end(index, cfg, works, planted, exact_rows, device="cuda"):
     done("lsh e2e", t0, f"search {seconds:.3f}s over {len(works)} works; "
                         f"{len(planted)} planted quotes found; row agreement "
                         f"{agreement} ({len(a & b)} of {len(a)} exact rows)")
+    return launches
+
+
+def lsh_f32_path(index, cfg, works, planted, sample: int = 600, device="cuda"):
+    """Phase 5b: the LSH path over the first ``sample`` works at
+    non-integral Smith-Waterman parameters (match 2.5, mismatch -1.25, gap
+    -0.75), which K5's packed route does not take: counted, so K5 must
+    launch its f32 route and never the packed one; every planted quote in
+    the sample must be found (a contained quote scores 1.0 at any
+    parameters)."""
+    import dataclasses
+
+    from fandom_search_tpu_torch import LSHConfig
+    from fandom_search_tpu_torch.ops.lsh import attach_lsh_prefilter
+    from fandom_search_tpu_torch.search.engine import SearchEngine
+
+    t0 = phase("lsh f32 route")
+    ids = sorted(works)[:sample]
+    sub = {w: works[w] for w in ids}
+    fcfg = dataclasses.replace(cfg, search=dataclasses.replace(
+        cfg.search, sw_variant="fast", sw_match=2.5, sw_mismatch=-1.25, sw_gap=-0.75))
+    engine = SearchEngine(index, fcfg, device=device)
+    attach_lsh_prefilter(engine, LSHConfig())
+    (rows, stats, seconds), launches = counted("lsh_f32", lambda: search(engine, sub))
+    found = {(r.work_id, r.line_no) for r in rows}
+    mine = [p for p in planted if p.work_id in sub]
+    missed = [p for p in mine if (p.work_id, p.line_no) not in found]
+    check(mine and not missed, f"LSH path at f32 parameters: {len(missed)} of {len(mine)} "
+                               f"planted quotes missed")
+    print(json.dumps({"lsh_f32_route": {"seconds": seconds, "works": len(sub),
+                                        "rows": len(rows), "verified": stats.num_verified,
+                                        "launches": launches}}), flush=True)
+    done("lsh f32 route", t0, f"{len(sub)} works at match 2.5 / mismatch -1.25 / gap -0.75: "
+                              f"K5's f32 route only; {len(mine)} planted quotes found")
     return launches
 
 
@@ -1300,6 +1555,8 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=120, check=True,
     ).stdout.strip().splitlines()
     print(smi[0], flush=True)
+    global CARD
+    CARD = smi[0]
     boost = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=120, check=True,
@@ -1342,6 +1599,7 @@ def main(argv=None) -> int:
     exact_rows, launches["exact"] = end_to_end(engine, works, planted, index, cfg)
     no_host_sync(engine, works, "exact")
     launches["lsh"] = lsh_end_to_end(index, cfg, works, planted, exact_rows)
+    launches["lsh_f32"] = lsh_f32_path(index, cfg, works, planted)
     launches["rows_ab"], ab_err = rows_ab(cfg, args.seed)
     res["topk_dot_rows"]["max_abs_err"] = max(res["topk_dot_rows"]["max_abs_err"], ab_err)
     with tempfile.TemporaryDirectory() as tmp:

@@ -50,6 +50,8 @@ _SIGNATURES = {
     "fs_sw": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _P],
     # the same arguments as fs_sw
     "fs_sw_lane": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _P],
+    # fs_sw's arguments with match, mismatch and gap as integers
+    "fs_sw_lane_i16": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     # q, codes_t, vals, idx, scratch, scratch_rows, nq, words, stride,
     # ns_valid, r, bits, h_max, route (0 s8 / 1 b1 mma), stream
     "fs_hamming_topk": [_P, _P, _P, _P, _P, _L, _L, _I, _L, _I, _I, _I, _I, _I, _P],

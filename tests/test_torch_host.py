@@ -235,6 +235,18 @@ def test_chip_smoke_imports_only_the_port():
     assert not bad, bad
 
 
+CARD_SCRIPTS = sorted(str(f.relative_to(ROOT)) for f in (ROOT / "scripts").glob("torch_*.py"))
+
+
+@pytest.mark.parametrize("rel", CARD_SCRIPTS)
+def test_card_script_imports_nothing_of_jax(rel):
+    """The scripts that measure the port on the card (no JAX there) import
+    neither JAX nor any module of the JAX package."""
+    bad = {m for m in _imported_modules(ROOT / rel)
+           if m.split(".")[0] in ("jax", "jaxlib", "fandom_search_tpu")}
+    assert not bad, bad
+
+
 @pytest.mark.parametrize("rel", PORT_FILES)
 def test_port_file_imports_nothing_of_jax(rel):
     """No file of the port, and not chip_smoke.py, imports JAX or any

@@ -126,15 +126,16 @@ class _FakeLib:
 
 
 @pytest.mark.parametrize("variant,symbol,counter", [
-    ("fast", "fs_sw_lane", "sw_lane"), ("r2", "fs_sw_lane", "sw_lane"),
-    ("dyn", "fs_sw_lane", "sw_lane"), ("wide", "fs_sw", "sw_wide"),
+    ("fast", "fs_sw_lane_i16", "sw_lane"), ("r2", "fs_sw_lane_i16", "sw_lane"),
+    ("dyn", "fs_sw_lane_i16", "sw_lane"), ("wide", "fs_sw", "sw_wide"),
     ("exitw", "fs_sw", "sw_wide"), ("slide", "fs_sw", "sw_wide"),
 ])
 def test_variant_routes_to_its_kernel(monkeypatch, variant, symbol, counter):
-    """fast/r2/dyn launch K5, wide/exitw/slide launch K4; the launching
-    wrapper's counter grows by one, the other's not at all.  LB = 64 needs
-    no scratch; LB = 65 reaches the same kernel with a [B, 2, LA] f32
-    scratch of strip-end columns."""
+    """fast/r2/dyn launch K5 (its packed route at the default integral
+    parameters), wide/exitw/slide launch K4; the launching wrapper's
+    counter grows by one, the other's not at all.  LB = 64 needs no
+    scratch; LB = 65 reaches the same kernel with a scratch of strip-end
+    columns."""
     lib = _FakeLib()
     monkeypatch.setattr(_cuda, "on_cpu", lambda *t: False)
     monkeypatch.setattr(_cuda, "library", lambda: lib)
