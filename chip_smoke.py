@@ -81,6 +81,38 @@ and time:
    ShingleConfig(dim=256), at max_line_tokens=96 and at k 40 with
    batch_queries 2^18; K1-K4 must launch, and the rows of a 40-work
    sample must equal the NumPy oracle's.
+10. bucketed end to end: a third engine with the bucketed prefilter
+   (BucketedConfig(): triangles, cap 8, load factor 4) over the 10k-work
+   world; its tables must come from the native builder.  Where no bucket
+   overflows cap (the flat route) K1, K3 and K4 must launch and K2 must
+   not; the rows must equal the exact path's, every planted quote found;
+   every K3 call of the first batch's candidate stage must equal its
+   plain version on the same inputs; prints overflow_frac,
+   bucketed_risk_frac, the stage seconds, the budget retries and the
+   launches; one warm fused step under sync debug mode.
+11. bucketed big: the JAX bench's flagship bucketed world
+   (fandom_search_tpu/bench.py's stage_bucketed_e2e_big: seed 23, 30,000
+   words, a script of 2^20 / 12 lines of 8-17 words at zipf 1.01, about
+   2^20 shingles, 480 works of 2,000 words with 3 quotes and one edit
+   each, zipf 1.01) under BucketedConfig(pairs="all"), hybrid on.  The
+   exact path and the bucketed one, each searched twice: the rows must
+   agree (missing 0, extra 0); overflow_frac > 0 and K2 launched by the
+   hybrid's stage 2; on the first batch, every K3 call of the stage (the
+   scans of 15.7M probe lengths and of the 6.3M-slot pair stream, the
+   max scan, the compactions) must equal its plain version on the same
+   inputs, and stage 2's K2 call must equal plain in every slot on
+   16,384 of its rows at the full NS; prints the native table build's
+   seconds, the risk
+   fraction, both paths' seconds, torch.cuda.max_memory_allocated, the
+   thresholded recall of the first batch's triples against K2's exact
+   top-k, and per batch the device ms (profiler) of the flat stage's
+   parts: geometry, segment stream, gather-dot, sort, compaction and
+   stage 2 (and of K2 alone in it); one warm fused step under sync debug
+   mode.
+12. bucketed CLI: `index --bucketed --bucketed-pairs all`, then
+   `search --index ... --bucketed` on the 600-work sample; the CSV must
+   equal the engine's over the loaded tables; prints the tables' load
+   seconds.
 
 It prints the kernel table as one JSON line, then, as its last line,
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -135,6 +167,10 @@ PATHS = {
     "index_search": EXACT + ("hamming_topk",),
     "serve": EXACT,
     "profile": EXACT,
+    # the bucketed prefilter's flat route (no bucket over cap): K1, K3,
+    # K4 verifying; its hybrid adds K2 for the queries at risk
+    "bucketed": ("embed_shingles", "scan1d_i32", "sw_wide"),
+    "bucketed_hybrid": EXACT,
 }
 # NVIDIA H100 SXM peaks (data sheet, dense): HBM bytes/s and int8
 # tensor-core operations/s
@@ -174,6 +210,15 @@ SW_I16_OPS_PER_PAIR = 8.5625
 # own launch on the trace's clock, and one-call traces of K4 held no kernel
 # 7 times in 1,500 with no sleep, 6 with 1 ms and 0 with 10 ms.
 PROFILE_PAD_S = 0.01
+# Tiny kernels launched ahead of a profiled span: on an H100 a trace loses
+# its first device events, none at first and more as the process ages,
+# whatever the pad (scripts/torch_profiler_lead.py); the span's own events
+# are picked out by correlation id (device_events).
+PROFILE_LEAD = 256
+PROFILE_SPAN = "chip_smoke.profiled"
+# Rows of a bucketed stage's K2 call held to plain (stage_vs_plain): the
+# plain version takes about a second for 16,384 rows at NS 2^20.
+K2_HELD_ROWS = 1 << 14
 # the card's name and power limit (nvidia-smi; set in main)
 CARD = ""
 
@@ -250,17 +295,24 @@ def read_counters():
     return {key: getattr(w, attr) for key, (w, attr) in counters().items()}
 
 
-def counted(path, run):
-    """Run ``run()`` with every launch counter at 0; check that exactly
-    the kernels of ``path`` launched; return (result, launches)."""
-    zero_counters()
-    out = run()
-    launches = read_counters()
+def check_launches(path, launches):
+    """Exactly the kernels of ``path`` launched."""
     for key, n in launches.items():
         if key in PATHS[path]:
             check(n > 0, f"the {path} path never launched {key}")
         else:
             check(n == 0, f"the {path} path launched {key} {n} times")
+
+
+def counted(path, run):
+    """Run ``run()`` with every launch counter at 0; check that exactly
+    the kernels of ``path`` launched (``path`` None: the caller checks);
+    return (result, launches)."""
+    zero_counters()
+    out = run()
+    launches = read_counters()
+    if path is not None:
+        check_launches(path, launches)
     return out, launches
 
 
@@ -885,37 +937,57 @@ def hamming_wide_check(engine, q_emb):
 
 def device_events(fn, reps: int = 1):
     """The kernel and memset events of ``reps`` warm calls of ``fn``,
-    from a torch.profiler Chrome trace (durations in us).  The host sleeps
-    PROFILE_PAD_S after the profiler starts and again after the calls: the
-    trace's device clock can sit ms off the host's, and the profiler drops
-    device events that fall outside its capture window."""
+    from a torch.profiler Chrome trace (durations in us), and the number
+    of kernel launches those calls made.  The host
+    sleeps PROFILE_PAD_S after the profiler starts and again after the
+    calls: the trace's device clock can sit ms off the host's, and the
+    profiler drops device events that fall outside its capture window.
+    It also drops the first device events of a trace, more of them the
+    longer the process has run, whatever the pad: PROFILE_LEAD tiny
+    kernels go first, and the calls' own events are picked out by their
+    launches' correlation ids inside a record_function span."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
+    lead = torch.zeros((1,), device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
-        for _ in range(reps):
-            fn()
+        for _ in range(PROFILE_LEAD):
+            lead.add_(1)
+        with record_function(PROFILE_SPAN):
+            for _ in range(reps):
+                fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
     with tempfile.TemporaryDirectory() as d:
         path = Path(d) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text()).get("traceEvents", [])
-    return ([e for e in events if e.get("cat") == "kernel"],
-            [e for e in events if e.get("cat") == "gpu_memset"])
+    spans = [e for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == PROFILE_SPAN]
+    check(len(spans) == 1, f"the trace holds {len(spans)} {PROFILE_SPAN} spans")
+    t0 = float(spans[0]["ts"])
+    t1 = t0 + float(spans[0]["dur"])
+    calls = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and t0 <= float(e["ts"]) <= t1]
+    ids = {e.get("args", {}).get("correlation") for e in calls}
+    mine = [e for e in events if e.get("cat") in ("kernel", "gpu_memset")
+            and e.get("args", {}).get("correlation") in ids]
+    return ([e for e in mine if e["cat"] == "kernel"],
+            [e for e in mine if e["cat"] == "gpu_memset"],
+            sum("Launch" in e["name"] and "Kernel" in e["name"] for e in calls))
 
 
 def one_kernel_ms(fn, what: str, reps: int = 50) -> float:
     """Device ms per call of ``fn``, which must launch exactly one kernel
     and no memset per call."""
-    kernels, memsets = device_events(fn, 1)
+    kernels, memsets, _ = device_events(fn, 1)
     check(len(kernels) == 1 and not memsets,
           f"one {what} call ran {[e.get('name') for e in kernels]} kernels and "
           f"{len(memsets)} memsets, not one kernel")
-    kernels, memsets = device_events(fn, reps)
+    kernels, memsets, _ = device_events(fn, reps)
     check(len(kernels) == reps and not memsets,
           f"{reps} {what} calls ran {len(kernels)} kernels and {len(memsets)} memsets")
     return sum(float(e["dur"]) for e in kernels) / reps / 1e3
@@ -976,7 +1048,7 @@ def scan_check(dev, rng):
         # one 32-bit integer add an element
         **bound(mask.numel() * 8, mask.numel(), INT32_OPS_S),
     )
-    lib_kernels, _ = device_events(lambda: torch.cumsum(mask, 0, dtype=torch.int32), 50)
+    lib_kernels, _, _ = device_events(lambda: torch.cumsum(mask, 0, dtype=torch.int32), 50)
     out["library_device_ms"] = sum(float(e["dur"]) for e in lib_kernels) / 50 / 1e3
     done("K3 scan", t0, str(out))
     return out
@@ -1536,6 +1608,346 @@ def wide_configs(index, cfg, works, sample: int = 600, oracle_sample: int = 40,
     return launches
 
 
+def _csv_rows(rows):
+    return [r.to_csv_row() for r in rows]
+
+
+def bucketed_end_to_end(index, cfg, works, planted, exact_rows, device="cuda"):
+    """Phase 10: the bucketed prefilter over the 10k-work world, counted;
+    rows equal to the exact path's; recall."""
+    from fandom_search_tpu_torch import BucketedConfig
+    from fandom_search_tpu_torch.ops.bucketed import attach_bucketed_prefilter
+    from fandom_search_tpu_torch.search.engine import SearchEngine
+
+    t0 = phase("bucketed e2e")
+    engine = SearchEngine(index, cfg, device=device)
+    attach_bucketed_prefilter(engine, BucketedConfig())
+    b = engine.bucketed
+    check(b.builder == "native", f"the bucketed tables came from the {b.builder} builder")
+    route = "bucketed" if engine._bucketed_risk_budget is None else "bucketed_hybrid"
+    (rows, stats, seconds), launches = counted(route, lambda: search(engine, works))
+    found = {(r.work_id, r.line_no) for r in rows}
+    missed = [p for p in planted if (p.work_id, p.line_no) not in found]
+    same = _csv_rows(rows) == _csv_rows(exact_rows)
+    tok = first_batch_stream(engine, works)
+    budget = ({} if engine._bucketed_risk_budget is None
+              else {"risk_budget": engine._bucketed_risk_budget})
+    held, _ = stage_vs_plain("bucketed e2e stage", lambda: engine._candidates_fn(
+        tok, max_out=engine._cand_budget, **budget))
+    print(json.dumps({"bucketed_e2e": {
+        "seconds": seconds, "works": len(works), "route": route,
+        "overflow_frac": b.overflow_frac,
+        "bucketed_risk_frac": stats.extra.get("bucketed_risk_frac"),
+        "table_build_seconds": b.build_seconds, "num_buckets": b.num_buckets,
+        "query_shingles": stats.num_query_shingles, "batches": stats.num_batches,
+        "budget_retries": launches["embed_shingles"] - stats.num_batches,
+        "rows": len(rows), "exact_rows": len(exact_rows), "rows_equal": same,
+        "candidates": stats.num_candidates, "verified": stats.num_verified,
+        "stage_seconds": dict(stats.extra, device_topk=stats.seconds_device_topk,
+                              host=stats.seconds_host),
+        "launches": launches, "held_to_plain": held,
+    }}), flush=True)
+    no_host_sync(engine, works, "bucketed")
+    check(same, f"bucketed rows ({len(rows)}) differ from the exact path's "
+                f"({len(exact_rows)})")
+    check(not missed, f"bucketed path: {len(missed)} of {len(planted)} planted quotes "
+                      f"missed, e.g. {missed[:3]}")
+    done("bucketed e2e", t0, f"{route} route, overflow_frac {b.overflow_frac}; search "
+                             f"{seconds:.3f}s over {len(works)} works; rows equal the "
+                             f"exact path's ({len(rows)}); {len(planted)} planted found")
+    return launches
+
+
+def big_world(cfg, shingles: int = 1 << 20, num_works: int = 480, seed: int = 23):
+    """fandom_search_tpu/bench.py's stage_bucketed_e2e_big world: English-
+    like skew over a 30,000-word vocabulary."""
+    import numpy as np
+
+    from fandom_search_tpu_torch.data.script_parser import parse_script
+    from fandom_search_tpu_torch.search.index import build_script_index
+    from fandom_search_tpu_torch.utils.synthetic import (
+        make_corpus_with_quotes, make_script, make_vocab,
+    )
+
+    rng = np.random.default_rng(seed)
+    vocab = make_vocab(rng, 30000)
+    script = make_script(rng, vocab, num_lines=max(1, -(-shingles // 12)),
+                         words_per_line=(8, 17), zipf_a=1.01)
+    lines = parse_script(script)
+    index = build_script_index(lines, cfg.shingle, cfg.search)
+    works, planted = make_corpus_with_quotes(
+        rng, [ln.text for ln in lines], num_works=num_works, words_per_work=2000,
+        quotes_per_work=3, num_edits=1, vocab=vocab, zipf_a=1.01,
+    )
+    return index, works, planted
+
+
+def kernel_events_ms(fn, traces: int = 3):
+    """Device ms of one warm call of ``fn``: its kernels' and memsets'
+    summed durations in a padded profiler trace (``device_events``),
+    the median over those of ``traces`` traces that hold a kernel event
+    for every kernel launch their runtime events record.  Returns (ms, or
+    None when no trace was whole, kernel launches, whole traces).  On an
+    H100, single-call traces taken late in a long process have come back
+    without a kernel that they launched; the callers print CUDA-event
+    times beside."""
+    whole, launched = [], 0
+    for _ in range(traces):
+        kernels, memsets, launched = device_events(fn, 1)
+        if len(kernels) == launched:
+            whole.append(sum(float(e["dur"]) for e in kernels + memsets) / 1e3)
+    ms = sorted(whole)[len(whole) // 2] if whole else None
+    return ms, launched, len(whole)
+
+
+def stage_vs_plain(path, run):
+    """Run ``run()``, a bucketed candidate stage, with each K2 and K3
+    call that ops/bucketed.py makes held against its plain version on
+    the same inputs: every scan and compaction whole, and K2 on the
+    K2_HELD_ROWS contiguous rows around its last nonzero row (the at-risk
+    rows come first, the zeroed -1 rows after them) at the full NS,
+    every slot equal.  Fails on any difference; returns {kernel call:
+    count} and K2's inputs (None when it did not run)."""
+    import torch
+
+    from fandom_search_tpu_torch.ops import bucketed as B
+    from fandom_search_tpu_torch.ops.distance_topk import (
+        NEG_INF, min_keep_int, topk_dot_plain,
+    )
+    from fandom_search_tpu_torch.ops.scan import nonzero_compact_plain, scan1d_i32_plain
+
+    kernels = dict(scan1d_i32=B.scan1d_i32, nonzero_compact=B.nonzero_compact,
+                   topk_dot=B.topk_dot)
+    calls, k2_args = {}, []
+
+    def held(what):
+        calls[what] = calls.get(what, 0) + 1
+        print(f"[{path}] {what}: equal to plain", flush=True)
+
+    def scan(x, op="add"):
+        got = kernels["scan1d_i32"](x, op)
+        check(torch.equal(got, scan1d_i32_plain(x, op)),
+              f"{path}: K3 {op} scan of {x.numel()} elements differs from plain")
+        held(f"K3 {op} scan n={x.numel()}")
+        return got
+
+    def compact(mask, size):
+        got = kernels["nonzero_compact"](mask, size)
+        check(torch.equal(got, nonzero_compact_plain(mask, size)),
+              f"{path}: K3 compaction of {mask.numel()} to {size} differs from plain")
+        held(f"K3 compaction n={mask.numel()} set={int(mask.sum())} size={size}")
+        return got
+
+    def k2(q, s, ns, k, *, min_keep=-float("inf"), merge="insert"):
+        got = kernels["topk_dot"](q, s, ns, k, min_keep=min_keep, merge=merge)
+        live = int(q.ne(0).any(dim=1).sum())
+        lo = max(0, min(live - K2_HELD_ROWS // 2, q.shape[0] - K2_HELD_ROWS))
+        hi = min(q.shape[0], lo + K2_HELD_ROWS)
+        want = topk_dot_plain(q[lo:hi], s, ns, k, min_keep_int(min_keep, q.shape[1]))
+        check(torch.equal(got[0][lo:hi], want[0]) and torch.equal(got[1][lo:hi], want[1]),
+              f"{path}: K2 differs from plain on rows {lo}..{hi} of {q.shape[0]} x NS {ns}")
+        filled = int((want[0] > NEG_INF).sum())
+        check(filled > 0, f"{path}: the K2 rows held to plain hold no entry to compare")
+        held(f"K2 {q.shape[0]} rows ({live} nonzero) x NS {ns} k {k} min_keep {min_keep}, "
+             f"rows {lo}..{hi} held ({filled} filled slots)")
+        k2_args.append((q, s, ns, k, min_keep))
+        return got
+
+    for name, fn in (("scan1d_i32", scan), ("nonzero_compact", compact), ("topk_dot", k2)):
+        setattr(B, name, fn)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in kernels.items():
+            setattr(B, name, fn)
+    check(any(c.startswith("K3") for c in calls), f"{path}: the stage made no K3 call")
+    return calls, (k2_args[0] if k2_args else None)
+
+
+def bucketed_stage_ms(engine, works):
+    """The hybrid's candidate stage on the first batch of ``works``: its
+    K2 and K3 calls held to plain (``stage_vs_plain``); each part's
+    device ms from the profiler, each part called alone on what the
+    parts before it made (``engine.bucketed_stage_parts``); the whole
+    stage's device and event ms beside the exact stage's; and the
+    thresholded recall of its triples against K2's exact top-k."""
+    import torch
+
+    from fandom_search_tpu_torch.data.fast_tokenizer import tokenize_many
+    from fandom_search_tpu_torch.ops import bucketed as B
+    from fandom_search_tpu_torch.ops.distance_topk import topk_dot
+    from fandom_search_tpu_torch.ops.embed import embed_shingles
+    from fandom_search_tpu_torch.search.engine import exact_candidates
+
+    scfg, xcfg = engine.cfg.shingle, engine.cfg.search
+    dix = engine._dix
+    ns = dix.s_emb.shape[0]
+    tok = first_batch_stream(engine, works)
+    items = sorted(tokenize_many(dict(sorted(works.items())[:1000])).items())
+    _, _, spans, _ = next(iter(engine._batches(items)))
+    # the batch's query shingles that lie inside its works (the zero
+    # tokens padding the stream score above the threshold against many
+    # script rows, which no bucket holds)
+    real = spans[-1][1] + spans[-1][2] - scfg.n + 1
+    max_out, rb = engine._cand_budget, engine._bucketed_risk_budget
+
+    def stage():
+        return engine._candidates_fn(tok, max_out=max_out, risk_budget=rb)
+
+    def exact_stage():
+        return exact_candidates(tok, dix, search_cfg=xcfg, max_out=max_out)
+
+    held, k2_args = stage_vs_plain("bucketed big stage", stage)
+    check(k2_args is not None, "the hybrid's stage made no K2 call")
+    parts = engine.bucketed_stage_parts(tok, max_out=max_out, risk_budget=rb)
+    _, _, at_risk = parts["geometry"][1]
+    row, _, _, pc = parts["segment_stream"][1]
+    out = {"queries": tok.shape[0] - scfg.n + 1, "pair_budget": row.shape[0],
+           "pairs": int(pc), "at_risk": int(at_risk.sum()), "risk_budget": rb,
+           "max_out": max_out, "held_to_plain": held}
+    timed = {name: part for name, (part, _) in parts.items()}
+    timed["stage2_k2_alone"] = lambda: topk_dot(*k2_args[:4], min_keep=k2_args[4])
+    timed["stage"] = stage
+    timed["exact_stage"] = exact_stage
+    for name, fn in timed.items():
+        out[f"{name}_ms"], out[f"{name}_kernels"], out[f"{name}_whole_traces"] = (
+            kernel_events_ms(fn))
+        out[f"{name}_event_ms"] = cuda_ms(fn, 3)
+    del parts, timed
+    qpos, _, sc, count, _ = stage()
+    q_emb = embed_shingles(tok, dix.mults)
+    ev, _ = topk_dot(q_emb[:real].contiguous(), dix.s_emb, ns, xcfg.k)
+    torch.cuda.synchronize()
+    check(int(count) <= max_out, f"the stage's triples overflow {max_out}")
+    out["recall_queries"] = real
+    out["recall_vs_exact"], out["recall_entries"] = B.thresholded_recall_vs_exact(
+        ev, qpos, sc, count, dim=scfg.dim, threshold=xcfg.candidate_threshold, stride=16)
+    return out
+
+
+def bucketed_big(cfg, device="cuda"):
+    """Phase 11: the hybrid over the flagship 2^20-shingle English-skew
+    world, against the exact path."""
+    import dataclasses
+
+    import torch
+
+    from fandom_search_tpu_torch import BucketedConfig
+    from fandom_search_tpu_torch.ops.bucketed import attach_bucketed_prefilter
+    from fandom_search_tpu_torch.search.engine import SearchEngine
+
+    t0 = phase("bucketed big")
+    bcfg = BucketedConfig(pairs="all")
+    cfg = dataclasses.replace(cfg, bucketed=bcfg)
+    index, works, planted = big_world(cfg)
+    world_s = time.perf_counter() - t0
+    print(f"[bucketed big] world: {len(index.lines)} lines, {index.num_shingles} script "
+          f"shingles, {len(works)} works ({world_s:.1f}s)", flush=True)
+    exact = SearchEngine(index, cfg, device=device)
+    (xrows, xstats, x_s), x_launches = counted("exact", lambda: search(exact, works))
+    _, _, x2_s = search(exact, works)
+    del exact
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = SearchEngine(index, cfg, device=device)
+    t1 = time.perf_counter()
+    attach_bucketed_prefilter(engine, bcfg)
+    attach_s = time.perf_counter() - t1
+    b = engine.bucketed
+    check(b.builder == "native", f"the bucketed tables came from the {b.builder} builder")
+    check(b.overflow_frac > 0 and engine._bucketed_risk_budget is not None,
+          f"overflow_frac {b.overflow_frac}: the hybrid route did not attach")
+    (brows, bstats, b_s), launches = counted("bucketed_hybrid", lambda: search(engine, works))
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["topk_dot"] > 0, "the hybrid's stage 2 never launched K2")
+    _, _, b2_s = search(engine, works)
+    ex, got = set(map(tuple, _csv_rows(xrows))), set(map(tuple, _csv_rows(brows)))
+    missing, extra = len(ex - got), len(got - ex)
+    found = {(r.work_id, r.line_no) for r in brows}
+    stages = bucketed_stage_ms(engine, works)
+    print(json.dumps({"bucketed_big": {
+        "world_seconds": world_s, "script_lines": len(index.lines),
+        "script_shingles": index.num_shingles, "works": len(works),
+        "pairs": bcfg.pairs, "num_buckets": b.num_buckets, "overflow_frac": b.overflow_frac,
+        "table_build_seconds": b.build_seconds, "table_builder": b.builder,
+        "attach_seconds": attach_s,
+        "bucketed_risk_frac": bstats.extra.get("bucketed_risk_frac"),
+        "risk_budget": engine._bucketed_risk_budget,
+        "exact_seconds": [x_s, x2_s], "bucketed_seconds": [b_s, b2_s],
+        "exact_rows": len(ex), "rows": len(got), "missing_rows": missing,
+        "extra_rows": extra,
+        "planted_found": sum((p.work_id, p.line_no) in found for p in planted),
+        "planted": len(planted),
+        "batches": bstats.num_batches,
+        "budget_retries": launches["embed_shingles"] - bstats.num_batches,
+        "exact_budget_retries": x_launches["embed_shingles"] - xstats.num_batches,
+        "candidates": bstats.num_candidates, "exact_candidates": xstats.num_candidates,
+        "max_memory_allocated": peak,
+        "stage_seconds": dict(bstats.extra, device_topk=bstats.seconds_device_topk),
+        "exact_stage_seconds": dict(xstats.extra, device_topk=xstats.seconds_device_topk),
+        "per_batch_device_ms": stages,
+        "launches": launches, "exact_launches": x_launches,
+    }}), flush=True)
+    no_host_sync(engine, works, "bucketed big")
+    check(missing == 0 and extra == 0,
+          f"bucketed big: {missing} exact rows missing, {extra} extra, of {len(ex)}")
+    done("bucketed big", t0, f"{index.num_shingles} shingles, overflow_frac "
+                             f"{b.overflow_frac:.5f}, risk frac "
+                             f"{bstats.extra.get('bucketed_risk_frac')}; rows {len(got)} "
+                             f"= exact (missing 0, extra 0); warm exact {x2_s:.3f}s, "
+                             f"bucketed {b2_s:.3f}s")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bucketed_cli(root: Path, wdir: Path, device="cuda"):
+    """Phase 12: `index --bucketed --bucketed-pairs all`, then `search
+    --index --bucketed` over the sample, against the engine over the
+    loaded tables."""
+    from fandom_search_tpu_torch import BucketedConfig, cli
+    from fandom_search_tpu_torch.ops.bucketed import attach_bucketed_prefilter
+    from fandom_search_tpu_torch.scrape.clean import load_works_dir
+    from fandom_search_tpu_torch.search.engine import SearchEngine
+    from fandom_search_tpu_torch.search.persist import load_bucketed, load_index
+    from fandom_search_tpu_torch.search.report import write_matches_csv
+
+    t0 = phase("bucketed cli")
+    idx = root / "idx_bucketed"
+
+    def run():
+        check(cli.main(["index", str(root / "script.txt"), "-o", str(idx), "--bucketed",
+                        "--bucketed-pairs", "all", "--device", device]) == 0,
+              "index --bucketed failed")
+        return cli_json(["search", str(wdir), "--index", str(idx), "--bucketed",
+                         "-o", str(root / "bucketed.csv"), "--device", device])
+
+    man, launches = counted(None, run)
+    t1 = time.perf_counter()
+    bidx = load_bucketed(idx, BucketedConfig(pairs="all"))
+    load_s = time.perf_counter() - t1
+    check(bidx is not None, "index --bucketed saved no tables for pairs 'all'")
+    check_launches("bucketed" if bidx.overflow_frac == 0 else "bucketed_hybrid", launches)
+    index, cfg = load_index(idx)
+    engine = SearchEngine(index, cfg, device=device)
+    attach_bucketed_prefilter(engine, cfg.bucketed, bidx=bidx)
+    rows, _ = engine.search_works(load_works_dir(wdir))
+    write_matches_csv(rows, root / "bucketed_engine.csv")
+    check((root / "bucketed.csv").read_bytes() == (root / "bucketed_engine.csv").read_bytes(),
+          "search --index --bucketed rows differ from the engine's")
+    check(man["matches"] == len(rows) > 0, f"search --bucketed found {man['matches']} rows")
+    print(json.dumps({"bucketed_cli": {
+        "works": man["works"], "rows": man["matches"], "pairs": cfg.bucketed.pairs,
+        "overflow_frac": bidx.overflow_frac, "load_tables_seconds": load_s,
+        "seconds_index": man["seconds_index"], "seconds_search": man["seconds_search"],
+        "launches": launches,
+    }}), flush=True)
+    done("bucketed cli", t0, f"{man['works']} works: CSV equal to the engine's "
+                             f"({len(rows)} rows); tables loaded in {load_s:.3f}s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--works", type=int, default=10_000)
@@ -1600,12 +2012,15 @@ def main(argv=None) -> int:
     no_host_sync(engine, works, "exact")
     launches["lsh"] = lsh_end_to_end(index, cfg, works, planted, exact_rows)
     launches["lsh_f32"] = lsh_f32_path(index, cfg, works, planted)
+    launches["bucketed"] = bucketed_end_to_end(index, cfg, works, planted, exact_rows)
+    launches["bucketed_big"] = bucketed_big(cfg)
     launches["rows_ab"], ab_err = rows_ab(cfg, args.seed)
     res["topk_dot_rows"]["max_abs_err"] = max(res["topk_dot_rows"]["max_abs_err"], ab_err)
     with tempfile.TemporaryDirectory() as tmp:
         by_phase, idx, wdir = persist_serve(works, script_text, Path(tmp))
         launches.update(by_phase)
         launches["profile"] = profile_phase(idx, wdir, Path(tmp))
+        launches["bucketed_cli"] = bucketed_cli(Path(tmp), wdir)
     for name, n in wide_configs(index, cfg, works).items():
         launches[f"wide_{name}"] = n
 

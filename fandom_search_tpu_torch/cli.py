@@ -1,21 +1,26 @@
 """The port's CLI; counterpart of fandom_search_tpu/cli.py (index, search, serve, matrix).
 
-    python -m fandom_search_tpu_torch index SCRIPT [SCRIPT ...] -o idx/ [--lsh]
+    python -m fandom_search_tpu_torch index SCRIPT [SCRIPT ...] -o idx/ [--lsh] \\
+        [--bucketed [--bucketed-pairs triangles|all]]
     python -m fandom_search_tpu_torch search WORKS_DIR (SCRIPT ... | --index idx/) \\
         -o matches.csv [--parquet] [--resume-dir DIR] [--profile DIR] \\
-        [--lsh] [--sw-variant VARIANT] [--selfcheck N] [--oracle] [search flags]
+        [--lsh | --bucketed [--bucketed-pairs triangles|all]] \\
+        [--sw-variant VARIANT] [--selfcheck N] [--oracle] [search flags]
     python -m fandom_search_tpu_torch serve (SCRIPT ... | --index idx/) \\
         [--host 127.0.0.1] [--port 8765] [--no-warm] [search flags]
     python -m fandom_search_tpu_torch matrix matches.csv -o matrix.csv \\
         [--script SCRIPT ...] [--html page.html] [--title TITLE]
 
 ``index`` writes the script index once (``search/persist.py``; ``--lsh``
-adds the prefilter's codes); ``search --index`` and ``serve --index``
-load it, and search flags given then overlay its stored config, as in
-the JAX package.  ``--lsh`` swaps the exact candidate stage for the LSH
-prefilter (K6 Hamming top-R, then an exact rerank) inside the engine's
-device step; ``--sw-variant`` picks the Smith-Waterman kernel: fast, r2
-and dyn run K5, wide, exitw and slide run K4 (the same scores).
+adds the prefilter's codes, ``--bucketed`` the bucketed tables);
+``search --index`` and ``serve --index`` load it, and search flags given
+then overlay its stored config, as in the JAX package.  ``--lsh`` swaps
+the exact candidate stage for the LSH prefilter (K6 Hamming top-R, then
+an exact rerank) inside the engine's device step, ``--bucketed`` for the
+bucketed prefilter (``ops/bucketed.py``: bucket probes, exact dots of
+the pairs found, K2 for queries that probe an over-cap bucket);
+``--sw-variant`` picks the Smith-Waterman kernel: fast, r2 and dyn run
+K5, wide, exitw and slide run K4 (the same scores).
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the search.
 ``--device`` defaults to ``cuda`` and fails when CUDA is missing;
 ``--device cpu`` is the explicit way to run the kernels' plain PyTorch
@@ -69,6 +74,17 @@ def _add_search_flags(p: argparse.ArgumentParser) -> None:
                         "all give the same scores")
     p.add_argument("--lsh", action="store_true",
                    help="use the LSH prefilter for candidate generation")
+    p.add_argument("--bucketed", action="store_true",
+                   help="use the sub-linear bucketed inverted-index "
+                        "prefilter (for very large script indexes, e.g. "
+                        "whole-season search); queries hitting overflowed "
+                        "(stopword-pair) buckets reroute through the exact "
+                        "kernel automatically")
+    p.add_argument("--bucketed-pairs", choices=("triangles", "all"),
+                   default=None,
+                   help="probe set: 'triangles' (6 probes, >=3-match "
+                        "guarantee) or 'all' (15 probes, >=2-match "
+                        "guarantee for recall-critical huge indexes)")
     p.add_argument("--oracle", action="store_true",
                    help="run the NumPy reference pipeline instead of the "
                         "engine")
@@ -103,7 +119,9 @@ def _runtime_overrides(args) -> dict:
 
 
 def _pipeline_config(args):
-    from fandom_search_tpu_torch.config import PipelineConfig, SearchConfig, ShingleConfig
+    from fandom_search_tpu_torch.config import (
+        BucketedConfig, PipelineConfig, SearchConfig, ShingleConfig,
+    )
 
     sh_kw = {}
     if args.shingle_n is not None:
@@ -111,9 +129,12 @@ def _pipeline_config(args):
     if getattr(args, "shingle_dim", None) is not None:
         sh_kw["dim"] = args.shingle_dim
     shingle = ShingleConfig(**sh_kw)
+    pairs = getattr(args, "bucketed_pairs", None)
+    bucketed = BucketedConfig() if pairs is None else BucketedConfig(pairs=pairs)
     return PipelineConfig(
         shingle=shingle,
         search=dataclasses.replace(SearchConfig(), **_runtime_overrides(args)),
+        bucketed=bucketed,
     )
 
 
@@ -140,6 +161,11 @@ def _overlay_runtime(cfg, args):
     if over:
         cfg = dataclasses.replace(
             cfg, search=dataclasses.replace(cfg.search, **over)
+        )
+    pairs = getattr(args, "bucketed_pairs", None)
+    if pairs is not None:
+        cfg = dataclasses.replace(
+            cfg, bucketed=dataclasses.replace(cfg.bucketed, pairs=pairs)
         )
     return cfg
 
@@ -226,6 +252,18 @@ def cmd_index(args) -> int:
         )
         save_lsh(Path(args.out), lsh, cfg.lsh)
         print(f"saved LSH codes ({cfg.lsh.bits} bits)", file=sys.stderr)
+    if args.bucketed:
+        from fandom_search_tpu_torch.ops.bucketed import BucketedIndex
+        from fandom_search_tpu_torch.search.persist import save_bucketed
+
+        bidx = BucketedIndex.build(
+            index.shingle_windows, cfg.bucketed, cfg.shingle, device=_device(args),
+        )
+        save_bucketed(Path(args.out), bidx, cfg.bucketed)
+        print(
+            f"saved bucketed tables ({bidx.num_buckets} buckets, "
+            f"overflow {bidx.overflow_frac:.5f})", file=sys.stderr,
+        )
     print(f"indexed {len(lines)} lines -> {index.num_shingles} shingles "
           f"at {args.out}", file=sys.stderr)
     return 0
@@ -235,6 +273,8 @@ def _build_engine(args, cfg, index, device):
     """The engine on ``device`` with the flags' prefilter attached."""
     from fandom_search_tpu_torch.search.engine import SearchEngine
 
+    if args.lsh and args.bucketed:
+        raise SystemExit("error: --lsh and --bucketed are exclusive")
     eng = SearchEngine(index, cfg, device=device)
     if args.lsh:
         from fandom_search_tpu_torch.ops.lsh import attach_lsh_prefilter
@@ -245,6 +285,15 @@ def _build_engine(args, cfg, index, device):
 
             prebuilt = load_lsh(Path(args.index), cfg.lsh)
         attach_lsh_prefilter(eng, cfg.lsh, lsh=prebuilt)
+    if args.bucketed:
+        from fandom_search_tpu_torch.ops.bucketed import attach_bucketed_prefilter
+
+        prebuilt_b = None
+        if args.index:
+            from fandom_search_tpu_torch.search.persist import load_bucketed
+
+            prebuilt_b = load_bucketed(Path(args.index), cfg.bucketed)
+        attach_bucketed_prefilter(eng, cfg.bucketed, bidx=prebuilt_b)
     return eng
 
 

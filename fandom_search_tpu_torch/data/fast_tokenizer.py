@@ -62,6 +62,18 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_int64),
     ]
+    lib.fs_bucketed_table.restype = ctypes.c_int64
+    lib.fs_bucketed_table.argtypes = [
+        ctypes.POINTER(ctypes.c_uint32),  # wa
+        ctypes.POINTER(ctypes.c_uint32),  # wb
+        ctypes.c_int64,                   # ns
+        ctypes.c_uint32,                  # salt
+        ctypes.c_uint32,                  # mask
+        ctypes.c_int32,                   # cap
+        ctypes.POINTER(ctypes.c_uint32),  # keys scratch
+        ctypes.POINTER(ctypes.c_int32),   # entries out
+        ctypes.POINTER(ctypes.c_int32),   # offsets out
+    ]
     lib.fs_abi_version.restype = ctypes.c_int32
     if lib.fs_abi_version() != _ABI_VERSION:
         log.warning("native ABI mismatch; using Python tokenizer")

@@ -6,8 +6,11 @@ on ``device``: the candidate stage -> dedup sort -> verify windows ->
 length sort -> Smith-Waterman (K4 or K5) -> compaction of the verified
 hits.  The candidate stage is ``exact_candidates`` (K1 embed -> K2
 distance top-k -> threshold compaction; every compaction is one K3
-launch) unless ``ops.lsh.attach_lsh_prefilter`` swaps in the LSH one
-(K1 -> K6 -> rerank -> the same compaction).  The host pulls one f32
+launch) unless a prefilter swaps in its own: ``ops.lsh.attach_lsh_prefilter``
+(K1 -> K6 -> rerank -> the same compaction) or
+``ops.bucketed.attach_bucketed_prefilter`` (K1 -> bucket probe -> exact
+dots of the pairs found -> K3 compactions; its hybrid adds K2 on the
+queries that probe an over-cap bucket).  The host pulls one f32
 [5, verify_budget] array per batch, retries a batch whose fixed budgets
 overflowed, and chains the hits into MatchRows.  Inside the device step
 nothing syncs with the host: no nonzero, no boolean-mask indexing, no
@@ -265,11 +268,13 @@ def fused_step(stream_ext: torch.Tensor, dix: DeviceIndex, *,
     ``stream_ext`` is int32 [T_pad + 2*nspans]: the token stream, then
     the span starts, then the span lengths (uint32 bit patterns).
     ``candidates_fn(stream, max_out=...)`` returns what
-    ``compact_candidates`` returns; it defaults to ``exact_candidates``.
-    Returns f32 [5, verify_budget], the layout of the JAX engine's
-    ``_fused_impl``: rows 0-3 are (qpos, line, score, verify_score) of
-    the verified hits; row 4 holds (candidates, deduped, verified) in
-    its first three slots.
+    ``compact_candidates`` returns, and may add a fifth element, the
+    bucketed hybrid's at-risk query count; it defaults to
+    ``exact_candidates``.  Returns f32 [5, verify_budget], the layout of
+    the JAX engine's ``_fused_impl``: rows 0-3 are (qpos, line, score,
+    verify_score) of the verified hits; row 4 holds (candidates,
+    deduped, verified) in its first three slots and the at-risk count,
+    where there is one, in the fourth.
     """
     n, dim = shingle_cfg.n, shingle_cfg.dim
     t_pad = stream_ext.shape[0] - 2 * nspans
@@ -280,11 +285,11 @@ def fused_step(stream_ext: torch.Tensor, dix: DeviceIndex, *,
         candidates_fn = functools.partial(
             exact_candidates, dix=dix, search_cfg=search_cfg
         )
-    qpos, sidx, score, cand_count = candidates_fn(stream, max_out=cand_budget)
+    qpos, sidx, score, cand_count, *risk = candidates_fn(stream, max_out=cand_budget)
     return fused_tail(
         stream, sp_start, sp_len, qpos, sidx, score, cand_count, dix,
         n=n, dim=dim, search_cfg=search_cfg, verify_budget=verify_budget,
-        nspans=nspans,
+        nspans=nspans, risk_count=risk[0] if risk else None,
     )
 
 
@@ -333,7 +338,7 @@ def _packable(t_pad: int, n_lines: int, width: int) -> bool:
 def fused_tail(stream, sp_start, sp_len, qpos, sidx, score, cand_count,
                dix: DeviceIndex, *, n: int, dim: int,
                search_cfg: SearchConfig, verify_budget: int,
-               nspans: int) -> torch.Tensor:
+               nspans: int, risk_count=None) -> torch.Tensor:
     """Dedup -> windows -> verification -> verified-hit compaction."""
     dev = stream.device
     t_pad = stream.shape[0]
@@ -414,6 +419,8 @@ def fused_tail(stream, sp_start, sp_len, qpos, sidx, score, cand_count,
     vsafe = vpos.clamp(min=0).long()
     counts = torch.zeros((verify_budget,), dtype=torch.float32, device=dev)
     counts[:3] = torch.stack([cand_count, uniq_count, ver_count]).float()
+    if risk_count is not None:
+        counts[3] = risk_count.float()
     return torch.stack([
         q_u[vsafe].float(),
         line_u[vsafe].float(),
@@ -448,10 +455,19 @@ class SearchEngine:
         self._cand_budget = xcfg.max_candidates_per_batch
         self._verify_budget = max(2048, xcfg.batch_queries // 64)
         # The candidate stage of fused_step; a prefilter swaps it
-        # (ops/lsh.py attach_lsh_prefilter).
+        # (ops/lsh.py attach_lsh_prefilter, ops/bucketed.py
+        # attach_bucketed_prefilter).
         self._candidates_fn = functools.partial(
             exact_candidates, dix=self._dix, search_cfg=xcfg
         )
+        # The bucketed hybrid's sticky at-risk row budget (None: no
+        # hybrid attached; its candidate stage then takes no
+        # risk_budget) and its per-search counts of at-risk and all
+        # query positions, counted per device step as the JAX engine
+        # counts them.
+        self._bucketed_risk_budget = None
+        self._bucketed_risk_queries = 0
+        self._bucketed_total_queries = 0
 
     @classmethod
     def from_index(cls, index, cfg: PipelineConfig, *, device="cuda"):
@@ -561,6 +577,7 @@ class SearchEngine:
         }
         stats.num_works = len(works)
         stats.extra["ns"] = float(self.index.num_shingles)
+        self._bucketed_risk_queries = self._bucketed_total_queries = 0
         if self.index.num_shingles == 0:
             return [], stats
 
@@ -600,6 +617,10 @@ class SearchEngine:
         )
         stats.seconds_host += time.perf_counter() - t0
         stats.extra["s_host"] += time.perf_counter() - t0
+        if self._bucketed_total_queries:
+            stats.extra["bucketed_risk_frac"] = (
+                self._bucketed_risk_queries / self._bucketed_total_queries
+            )
         return rows, stats
 
     @staticmethod
@@ -654,27 +675,34 @@ class SearchEngine:
 
     # -- fused batch path ----------------------------------------------------
 
-    def _fused_call(self, ext_dev, nspans, cand_budget, verify_budget):
+    def _fused_call(self, ext_dev, nspans, cand_budget, verify_budget,
+                    risk_budget=None):
+        """One fused step; ``risk_budget`` (default: the sticky one) goes
+        to a bucketed hybrid's candidate stage."""
+        fn = self._candidates_fn
+        if self._bucketed_risk_budget is not None:
+            fn = functools.partial(
+                fn, risk_budget=risk_budget or self._bucketed_risk_budget
+            )
         return fused_step(
             ext_dev, self._dix,
             shingle_cfg=self.cfg.shingle, search_cfg=self.cfg.search,
             cand_budget=cand_budget, verify_budget=verify_budget,
-            nspans=nspans, candidates_fn=self._candidates_fn,
+            nspans=nspans, candidates_fn=fn,
         )
 
     def _submit_fused(self, ext, nspans, spans, stats: EngineStats):
         t0 = time.perf_counter()
         ext_dev = self._upload(ext)
-        out = self._fused_call(
-            ext_dev, nspans, self._cand_budget, self._verify_budget
-        )
+        budgets = (self._cand_budget, self._verify_budget,
+                   self._bucketed_risk_budget)
+        out = self._fused_call(ext_dev, nspans, *budgets)
         stats.seconds_device_topk += time.perf_counter() - t0
-        return (ext_dev, spans, nspans, self._cand_budget,
-                self._verify_budget, out)
+        return (ext_dev, spans, nspans, *budgets, out)
 
     def _process_fused(
-        self, ext_dev, spans, nspans, cand_budget, verify_budget, out,
-        stats: EngineStats, acc: _HitAccumulator,
+        self, ext_dev, spans, nspans, cand_budget, verify_budget,
+        risk_budget, out, stats: EngineStats, acc: _HitAccumulator,
     ) -> None:
         scfg, xcfg = self.cfg.shingle, self.cfg.search
         t0 = time.perf_counter()
@@ -684,6 +712,27 @@ class SearchEngine:
             stats.extra["s_pull"] += time.perf_counter() - t_p
             cand_count = int(host[4, 0])
             uniq_count = int(host[4, 1])
+            if risk_budget is not None:
+                # the hybrid's triples hold every at-risk query only when
+                # they fit its risk budget; the other counts wait for that
+                risk_count = int(host[4, 3])
+                if risk_count > risk_budget:
+                    risk_budget = _next_pow2(risk_count, risk_budget * 2)
+                    self._bucketed_risk_budget = max(
+                        self._bucketed_risk_budget, risk_budget
+                    )
+                    log.info(
+                        "at-risk rows exceeded (%d); retrying batch with "
+                        "risk budget %d", risk_count, risk_budget,
+                    )
+                    out = self._fused_call(
+                        ext_dev, nspans, cand_budget, verify_budget, risk_budget
+                    )
+                    continue
+                self._bucketed_risk_queries += risk_count
+                self._bucketed_total_queries += max(
+                    0, ext_dev.shape[0] - 2 * nspans - scfg.n + 1
+                )
             retry = False
             if cand_count > cand_budget:
                 cand_budget = _next_pow2(cand_count, cand_budget * 2)
@@ -700,7 +749,9 @@ class SearchEngine:
                 "budgets %d/%d", cand_count, uniq_count,
                 cand_budget, verify_budget,
             )
-            out = self._fused_call(ext_dev, nspans, cand_budget, verify_budget)
+            out = self._fused_call(
+                ext_dev, nspans, cand_budget, verify_budget, risk_budget
+            )
         t_h = time.perf_counter()
         ver_count = int(host[4, 2])
         stats.num_candidates += uniq_count

@@ -3,14 +3,16 @@
 ``save_index`` writes a script index once (``index`` verb) so later
 ``search --index`` and ``serve --index`` runs skip parsing and
 embedding the script; ``save_lsh`` adds the LSH prefilter's projection
-and codes beside it.  ``meta.json`` and ``lsh_meta.json`` follow the JAX
-package's schema (format version 3, the same config fields and line
+and codes beside it, ``save_bucketed`` the bucketed prefilter's tables.
+``meta.json``, ``lsh_meta.json`` and ``bucketed_meta.json`` follow the
+JAX package's schema (format version 3, the same config fields and line
 records) and the arrays keep its dtypes (uint32 hashes and windows,
-int8 embeddings, int8 projection, uint32 codes).
+int8 embeddings, int8 projection, uint32 codes, int32 tables).
 
-The arrays go to ``arrays.npz`` and ``lsh_arrays.npz`` (``np.savez``,
-read back with ``allow_pickle=False``).  The JAX package writes them as
-orbax checkpoints (``arrays/``, ``lsh_arrays/``), which this package
+The arrays go to ``arrays.npz``, ``lsh_arrays.npz`` and
+``bucketed_arrays.npz`` (``np.savez``, read back with
+``allow_pickle=False``).  The JAX package writes them as orbax
+checkpoints (``arrays/``, ``lsh_arrays/``, ...), which this package
 does not read: a directory that holds ``arrays/`` and no ``arrays.npz``
 is refused with a message to re-run this package's ``index``.
 """
@@ -144,3 +146,62 @@ def load_lsh(path: str | Path, cfg: LSHConfig):
     arrays = _read_npz(path, "lsh_arrays", ("projection", "codes_t"))
     return LSHIndex.from_arrays(arrays["projection"], arrays["codes_t"],
                                 int(meta["ns_valid"]))
+
+
+def _bucketed_identity(cfg: BucketedConfig) -> dict:
+    """The BucketedConfig fields that determine the built tables:
+    ``hybrid`` is a routing choice at search time, and the same tables
+    serve both modes."""
+    d = dataclasses.asdict(cfg)
+    d.pop("hybrid", None)
+    return d
+
+
+def save_bucketed(path: str | Path, bidx, cfg: BucketedConfig) -> None:
+    """Persist a built BucketedIndex (``ops/bucketed.py``) next to the
+    script index, so attaching the prefilter to a loaded index builds
+    nothing."""
+    path = Path(path).resolve()
+    np.savez(
+        path / "bucketed_arrays.npz",
+        entries=bidx.entries.cpu().numpy(),
+        offsets=bidx.offsets.cpu().numpy(),
+    )
+    meta = {
+        "num_buckets": int(bidx.num_buckets),
+        "salts": list(bidx.salts),
+        "ns_valid": int(bidx.ns_valid),
+        "overflow_frac": float(bidx.overflow_frac),
+        "bucketed": _bucketed_identity(cfg),
+    }
+    (path / "bucketed_meta.json").write_text(json.dumps(meta), encoding="utf-8")
+
+
+def load_bucketed(path: str | Path, cfg: BucketedConfig):
+    """Load a persisted BucketedIndex (on the CPU;
+    ``attach_bucketed_prefilter`` moves it to the engine's device); None
+    if absent, or, with a warning, if built with another config."""
+    import sys
+
+    from fandom_search_tpu_torch.ops.bucketed import BucketedIndex
+
+    path = Path(path).resolve()
+    meta_path = path / "bucketed_meta.json"
+    if not meta_path.exists():
+        return None
+    meta = json.loads(meta_path.read_text(encoding="utf-8"))
+    saved = dict(meta.get("bucketed") or {})
+    saved.pop("hybrid", None)  # saves from before the field existed
+    if saved != _bucketed_identity(cfg):
+        print(
+            f"warning: persisted bucketed tables at {path} were built "
+            f"with {saved}, requested {_bucketed_identity(cfg)}; "
+            f"rebuilding from the requested config",
+            file=sys.stderr,
+        )
+        return None
+    arrays = _read_npz(path, "bucketed_arrays", ("entries", "offsets"))
+    return BucketedIndex.from_arrays(
+        arrays["entries"], arrays["offsets"], int(meta["num_buckets"]),
+        meta["salts"], int(meta["ns_valid"]), float(meta["overflow_frac"]),
+    )

@@ -33,16 +33,40 @@ def _vocab_arr(vocab: List[str]) -> np.ndarray:
     return _vocab_arr._cache[1]
 
 
+def _draw_idx(
+    rng: np.random.Generator, n: int, size: int, zipf_a: float | None
+) -> np.ndarray:
+    """Vocab-index draws: uniform (the default) or Zipf-skewed ranks,
+    ``(rng.zipf(a) - 1) % size`` (a=1.01: the top word a few percent of
+    tokens, like English stopwords)."""
+    if zipf_a is None:
+        return rng.integers(0, size, size=n)
+    return ((rng.zipf(zipf_a, size=n) - 1) % size).astype(np.int64)
+
+
+def random_text(
+    rng: np.random.Generator,
+    vocab: List[str],
+    num_words: int,
+    zipf_a: float | None = None,
+) -> str:
+    idx = _draw_idx(rng, num_words, len(vocab), zipf_a)
+    return " ".join(_vocab_arr(vocab)[idx].tolist())
+
+
 def make_script(
     rng: np.random.Generator,
     vocab: List[str],
     num_lines: int = 40,
     words_per_line: Tuple[int, int] = (4, 14),
     speakers: Tuple[str, ...] = ("ALICE", "BOB", "CAROL"),
+    zipf_a: float | None = None,
 ) -> str:
     """A 'tagged'-format script: SPEAKER: dialogue."""
     counts = rng.integers(*words_per_line, size=num_lines)
-    words = _vocab_arr(vocab)[rng.integers(0, len(vocab), size=int(counts.sum()))]
+    words = _vocab_arr(vocab)[
+        _draw_idx(rng, int(counts.sum()), len(vocab), zipf_a)
+    ]
     sps = np.asarray(speakers, dtype=object)[
         rng.integers(0, len(speakers), size=num_lines)
     ]
@@ -82,6 +106,7 @@ def make_corpus_with_quotes(
     quotes_per_work: int = 2,
     num_edits: int = 0,
     vocab: List[str] | None = None,
+    zipf_a: float | None = None,
 ) -> Tuple[Dict[str, str], List[PlantedQuote]]:
     """Random fanworks with script lines spliced in at known offsets."""
     vocab = vocab or make_vocab(rng)
@@ -90,7 +115,7 @@ def make_corpus_with_quotes(
     varr = _vocab_arr(vocab)
     for w in range(num_works):
         wid = f"work{w:05d}"
-        body = varr[rng.integers(0, len(vocab), size=words_per_work)].tolist()
+        body = varr[_draw_idx(rng, words_per_work, len(vocab), zipf_a)].tolist()
         # Choose all insertion points in the ORIGINAL body and insert
         # back-to-front, so one planted quote never splits another.
         ats = sorted(

@@ -264,7 +264,7 @@ def dpx_rates(tmp: Path):
         def probe():
             if fn(out.data_ptr(), blocks, iters, op, stream) != 0:
                 raise SystemExit("fs_dpx_probe failed")
-        kernels, _ = cs.device_events(probe, reps)
+        kernels, _, _ = cs.device_events(probe, reps)
         if len(kernels) != reps:
             raise SystemExit(f"{reps} probe calls ran {len(kernels)} kernels")
         rates[name] = blocks * 256 * iters * 8 / (
@@ -283,7 +283,7 @@ def timed(calls, reps):
     for key in order:
         dev = ev = 0.0
         for call in calls[key]:
-            kernels, _ = cs.device_events(call, reps)
+            kernels, _, _ = cs.device_events(call, reps)
             if len(kernels) != reps:
                 raise SystemExit(f"{reps} {key} calls ran {len(kernels)} kernels")
             dev += sum(float(e["dur"]) for e in kernels) / reps / 1e3

@@ -210,6 +210,28 @@ def test_synthetic_matches(seed, num_edits):
     assert out[0] == out[1]
 
 
+@pytest.mark.parametrize("seed,zipf_a,num_edits", [(23, 1.01, 1), (3, 1.3, 0), (8, None, 2)])
+def test_synthetic_zipf_matches(seed, zipf_a, num_edits):
+    """With ``zipf_a`` (the skewed worlds of the bucketed prefilter), the
+    port's generator draws the original's script, works, planted quotes
+    and random text from the same seed."""
+    out = []
+    for mod in (synthetic, jsynthetic):
+        rng = np.random.default_rng(seed)
+        vocab = mod.make_vocab(rng, 3000)
+        text = mod.make_script(rng, vocab, num_lines=40, words_per_line=(8, 17),
+                               zipf_a=zipf_a)
+        works, planted = mod.make_corpus_with_quotes(
+            rng, [ln.text for ln in parse_script(text)], num_works=5,
+            words_per_work=300, quotes_per_work=3, num_edits=num_edits,
+            vocab=vocab, zipf_a=zipf_a,
+        )
+        out.append((text, works, [dataclasses.astuple(p) for p in planted],
+                    mod.random_text(rng, vocab, 50, zipf_a=zipf_a),
+                    mod.random_text(rng, vocab, 20), rng.integers(1 << 30)))
+    assert out[0] == out[1]
+
+
 PORT_FILES = sorted(
     str(f.relative_to(ROOT))
     for f in (ROOT / "fandom_search_tpu_torch").rglob("*.py")
