@@ -114,6 +114,47 @@ and time:
    equal the engine's over the loaded tables; prints the tables' load
    seconds.
 
+13. compress: the exact path over the 10k-work world with
+   stream_compress (a fresh engine: batch 1 bootstraps the vocab table
+   raw), in turns with warm raw searches on the exact engine (raw,
+   compressed, compressed again, raw); rows equal the raw run's and the
+   oracle sample's; every batch's decoded stream_ext, read back after
+   the run, equal to its raw buffer bit for bit; prints the batches
+   encoded and raw, the bytes of each batch's upload both ways, the table
+   uploads, the misses, e2e and s_batchgen in turns, the encoder's host
+   seconds and one batch's upload and decode ms; one warm compressed step
+   (decode included) under sync debug mode.  Then the decode's patch
+   path on a world of its own at batch_queries 2^16: a batch carrying
+   real patches, a later batch over the patch budget sent raw with its
+   words admitted by count, and a table that goes up again after it
+   grew; every decoded stream_ext bit-exact, rows equal a raw engine's.
+14. sharded: the sharded engine on a 2 x 2 mesh (four distinct cards
+   where the machine has them, else four logical shards of cuda:0, as
+   printed).  One fused step on the first batch with every kernel call
+   held to its plain version at the path's shapes: K1 on each works slice
+   with its 5-token halo, K2 on each of the four blocks (the second script
+   shard partial), each slice's merged top-k against single-device K2 and
+   plain on the whole script in values and indices, every K3 compaction,
+   K4 on each works shard.  The 10k-work search, counted: rows equal one
+   device's, sample parity 1.0; one step under sync debug mode.  Then
+   over 600 works: the mesh with stream compression, with the LSH
+   prefilter at sw_variant fast (K5, K6; the first batch's step with
+   every K3 compaction and K5's packed route on each works shard held to
+   plain), with attach_bucketed_prefilter and with
+   attach_bucketed_prefilter_sharded (the first batch's stage with K1 on
+   each works slice and every K3 scan and compaction, the cross-shard
+   ones included, held to plain), each equal to one device's rows.
+15. sharded dryrun: __graft_entry__.py's dry-run world (seed 7, 15
+   uniform and 15 stopword-led lines, 40 works and one longer than the
+   batch cap) on a 2 x 4 mesh, the fused engine and the sharded bucketed
+   hybrid: the first batch's step with every kernel held to plain (three
+   of the four script shards lie past the script's end: K2 at ns_valid
+   0), and the hybrid's first-batch stage likewise (K1 per works slice,
+   every K3 call, the cross-shard compactions, K2's rescue of the
+   gathered at-risk rows); rows equal the port's oracle, at-risk queries
+   above 0.
+Phases 13-15 run right after phase 4, on its rows and oracle sample.
+
 It prints the kernel table as one JSON line, then, as its last line,
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
 Imports nothing of JAX and nothing of fandom_search_tpu itself: only the
@@ -171,6 +212,18 @@ PATHS = {
     # K4 verifying; its hybrid adds K2 for the queries at risk
     "bucketed": ("embed_shingles", "scan1d_i32", "sw_wide"),
     "bucketed_hybrid": EXACT,
+    # the exact path with stream compression; the sharded engine (its
+    # exact step, with compression, with the LSH prefilter at sw_variant
+    # fast, with either bucketed attach on the flat route)
+    "compress": EXACT,
+    "sharded": EXACT,
+    "sharded_compress": EXACT,
+    "sharded_lsh": ("embed_shingles", "scan1d_i32", "sw_lane_i16", "hamming_topk"),
+    "sharded_bucketed": ("embed_shingles", "scan1d_i32", "sw_wide"),
+    "sharded_bucketed_sharded": ("embed_shingles", "scan1d_i32", "sw_wide"),
+    # the dry-run world on a 2 x 4 mesh: fused, and the sharded hybrid
+    "dryrun_fused": EXACT,
+    "dryrun_hybrid": EXACT,
 }
 # NVIDIA H100 SXM peaks (data sheet, dense): HBM bytes/s and int8
 # tensor-core operations/s
@@ -353,25 +406,42 @@ def first_batch_stream(engine, works):
     return torch.from_numpy(ext[:t_pad].view(np.int32).copy()).to(engine.device)
 
 
-def no_host_sync(engine, works, path):
+def no_host_sync(engine, works, path, encoded=False):
     """One warm fused step of the first batch under
     ``torch.cuda.set_sync_debug_mode("error")``: an op inside the step
     that waits for the device (a copy from pageable memory, .item(),
-    nonzero, boolean-mask indexing) raises, and the check fails."""
+    nonzero, boolean-mask indexing) raises, and the check fails.  With
+    ``encoded`` the batch must come out of a warm stream encoder as an
+    EncodedBatch, and the step includes its decode on the device (the
+    upload and the table's upload stay outside)."""
     import torch
 
     from fandom_search_tpu_torch.data.fast_tokenizer import tokenize_many
+    from fandom_search_tpu_torch.search.engine import EncodedBatch, _decode_stream
 
     t0 = phase(f"{path} no host sync")
     items = sorted(tokenize_many(dict(sorted(works.items())[:1000])).items())
-    ext, nspans, _, _ = next(iter(engine._batches(items)))
-    ext_dev = engine._upload(ext)
+    payload, nspans, _, _ = next(iter(engine._batches(items)))
     budgets = (engine._cand_budget, engine._verify_budget)
-    engine._fused_call(ext_dev, nspans, *budgets)
+    check(isinstance(payload, EncodedBatch) == encoded,
+          f"{path}: the first batch is {type(payload).__name__}")
+    if encoded:
+        c_dev, table = engine._upload(payload.c_ext), engine._vocab_table_dev()
+
+        def step():
+            ext_dev = _decode_stream(c_dev, table, t_pad=payload.t_pad, p_pad=payload.p_pad,
+                                     nspans=nspans)
+            return engine._fused_call(ext_dev, nspans, *budgets)
+    else:
+        ext_dev = engine._upload(payload)
+
+        def step():
+            return engine._fused_call(ext_dev, nspans, *budgets)
+    step()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        engine._fused_call(ext_dev, nspans, *budgets)
+        step()
     except RuntimeError as e:
         check(False, f"the {path} fused step waits for the device: {e}")
     finally:
@@ -1184,8 +1254,23 @@ def search(engine, works):
     return rows, stats, time.perf_counter() - t0
 
 
+def sample_parity(rows, oracle, what):
+    """Row parity of ``rows`` against the oracle's rows ``oracle`` = (work
+    ids, rows) of a sample; fails below 1.0 or on any field."""
+    ids, orows = oracle
+    key = lambda r: (r.work_id, r.fan_token_start, r.line_no)  # noqa: E731
+    got = [r for r in rows if r.work_id in set(ids)]
+    gk, ok_ = {key(r) for r in got}, {key(r) for r in orows}
+    parity = len(gk & ok_) / len(gk | ok_) if (gk or ok_) else 1.0
+    check(parity == 1.0, f"{what}: sample row parity {parity} != 1.0")
+    check([r.to_csv_row() for r in got] == [r.to_csv_row() for r in orows],
+          f"{what}: sample rows differ from the oracle's in some field")
+    return parity
+
+
 def end_to_end(engine, works, planted, index, cfg, sample: int = 50):
-    """Phase 4: the exact path, counted; parity on a sample; recall."""
+    """Phase 4: the exact path, counted; parity on a sample; recall.
+    Returns the rows, the launches, the seconds and the oracle's sample."""
     from fandom_search_tpu_torch.search.oracle import search_works_oracle
 
     t0 = phase("e2e")
@@ -1204,13 +1289,7 @@ def end_to_end(engine, works, planted, index, cfg, sample: int = 50):
     t1 = time.perf_counter()
     ids = sorted(works)[:sample]
     orows, _ = search_works_oracle({w: works[w] for w in ids}, index, cfg)
-    key = lambda r: (r.work_id, r.fan_token_start, r.line_no)  # noqa: E731
-    got = [r for r in rows if r.work_id in set(ids)]
-    gk, ok_ = {key(r) for r in got}, {key(r) for r in orows}
-    parity = len(gk & ok_) / len(gk | ok_) if (gk or ok_) else 1.0
-    check(parity == 1.0, f"sample row parity {parity} != 1.0")
-    check([r.to_csv_row() for r in got] == [r.to_csv_row() for r in orows],
-          "sample rows differ from the oracle's in some field")
+    parity = sample_parity(rows, (ids, orows), "exact")
     found = {(r.work_id, r.line_no) for r in rows}
     missed = [p for p in planted if (p.work_id, p.line_no) not in found]
     check(not missed, f"{len(missed)} of {len(planted)} planted quotes missed, "
@@ -1218,7 +1297,7 @@ def end_to_end(engine, works, planted, index, cfg, sample: int = 50):
     done("e2e", t0, f"search {seconds:.3f}s; parity {parity} on {len(ids)} works "
                     f"({len(orows)} oracle rows, {time.perf_counter() - t1:.1f}s); "
                     f"{len(planted)} planted quotes found")
-    return rows, launches
+    return rows, launches, seconds, (ids, orows)
 
 
 def lsh_end_to_end(index, cfg, works, planted, exact_rows, device="cuda"):
@@ -1700,29 +1779,40 @@ def kernel_events_ms(fn, traces: int = 3):
     return ms, launched, len(whole)
 
 
-def stage_vs_plain(path, run):
-    """Run ``run()``, a bucketed candidate stage, with each K2 and K3
-    call that ops/bucketed.py makes held against its plain version on
-    the same inputs: every scan and compaction whole, and K2 on the
-    K2_HELD_ROWS contiguous rows around its last nonzero row (the at-risk
-    rows come first, the zeroed -1 rows after them) at the full NS,
-    every slot equal.  Fails on any difference; returns {kernel call:
-    count} and K2's inputs (None when it did not run)."""
+def stage_vs_plain(path, run, also=()):
+    """Run ``run()``, a bucketed candidate stage, with each K1, K2 and K3
+    call that ops/bucketed.py and the modules ``also`` make held against
+    its plain version on the same inputs: every embed, scan and compaction
+    whole, and K2 on the K2_HELD_ROWS contiguous rows around its last
+    nonzero row (the at-risk rows come first, the zeroed -1 rows after
+    them) at the full NS, every slot equal.  Fails on any difference;
+    returns {kernel call: count} and K2's inputs (None when it did not
+    run)."""
     import torch
 
     from fandom_search_tpu_torch.ops import bucketed as B
     from fandom_search_tpu_torch.ops.distance_topk import (
         NEG_INF, min_keep_int, topk_dot_plain,
     )
+    from fandom_search_tpu_torch.ops.embed import embed_shingles_plain
     from fandom_search_tpu_torch.ops.scan import nonzero_compact_plain, scan1d_i32_plain
 
-    kernels = dict(scan1d_i32=B.scan1d_i32, nonzero_compact=B.nonzero_compact,
-                   topk_dot=B.topk_dot)
+    names = ("embed_shingles", "scan1d_i32", "nonzero_compact", "topk_dot")
+    saved = [(m, name, getattr(m, name)) for m in (B, *also) for name in names
+             if hasattr(m, name)]
+    kernels = {name: fn for _, name, fn in saved}
     calls, k2_args = {}, []
 
     def held(what):
         calls[what] = calls.get(what, 0) + 1
         print(f"[{path}] {what}: equal to plain", flush=True)
+
+    def embed(tok, mults):
+        got = kernels["embed_shingles"](tok, mults)
+        check(torch.equal(got, embed_shingles_plain(tok, mults)),
+              f"{path}: K1 on {tok.shape[0]} tokens differs from plain")
+        held(f"K1 tokens={tok.shape[0]}")
+        return got
 
     def scan(x, op="add"):
         got = kernels["scan1d_i32"](x, op)
@@ -1753,14 +1843,16 @@ def stage_vs_plain(path, run):
         k2_args.append((q, s, ns, k, min_keep))
         return got
 
-    for name, fn in (("scan1d_i32", scan), ("nonzero_compact", compact), ("topk_dot", k2)):
-        setattr(B, name, fn)
+    held_by = dict(embed_shingles=embed, scan1d_i32=scan, nonzero_compact=compact,
+                   topk_dot=k2)
+    for m, name, _ in saved:
+        setattr(m, name, held_by[name])
     try:
         run()
         torch.cuda.synchronize()
     finally:
-        for name, fn in kernels.items():
-            setattr(B, name, fn)
+        for m, name, fn in saved:
+            setattr(m, name, fn)
     check(any(c.startswith("K3") for c in calls), f"{path}: the stage made no K3 call")
     return calls, (k2_args[0] if k2_args else None)
 
@@ -1948,6 +2040,455 @@ def bucketed_cli(root: Path, wdir: Path, device="cuda"):
     return launches
 
 
+def compress_end_to_end(index, cfg, works, exact_engine, exact_rows, oracle, device="cuda"):
+    """Phase 13: the exact path with stream_compress, counted, in turns
+    with warm raw searches on the exact engine (raw, compressed on a fresh
+    engine, compressed again, raw): rows equal the raw run's, sample
+    parity 1.0; every batch's decoded stream_ext of the first compressed
+    run, read back after it, equal to its raw buffer bit for bit; the
+    uploads both ways, the encoder's host seconds, one batch's upload and
+    decode times; then the patch path on its own world
+    (``compress_patches``)."""
+    import dataclasses
+
+    from fandom_search_tpu_torch.search.engine import EncodedBatch, SearchEngine, _decode_stream
+
+    t0 = phase("compress")
+    _, raw_stats, raw_s = search(exact_engine, works)
+    ccfg = dataclasses.replace(cfg, search=dataclasses.replace(cfg.search,
+                                                               stream_compress=True))
+    engine = SearchEngine(index, ccfg, device=device)
+    (rows, stats, seconds, sent, enc_s), launches = counted(
+        "exact", lambda: decoded_search(engine, works))
+    _, warm_stats, warm_s = search(engine, works)
+    _, raw2_stats, raw2_s = search(exact_engine, works)
+    enc = [p for _, p in sent if isinstance(p, EncodedBatch)]
+    same = _csv_rows(rows) == _csv_rows(exact_rows)
+    check(same, f"compressed rows ({len(rows)}) differ from the raw run's "
+                f"({len(exact_rows)})")
+    parity = sample_parity(rows, oracle, "compress")
+    raw_bytes = [ext.nbytes for ext, _ in sent]
+    sent_bytes = [p.c_ext.nbytes if isinstance(p, EncodedBatch) else p.nbytes
+                  for _, p in sent]
+    table_bytes = engine.table_uploads * 4 * 65536
+    ext0, p0 = next((e, p) for e, p in sent if isinstance(p, EncodedBatch))
+    c_dev, table = engine._upload(p0.c_ext), engine._vocab_table_dev()
+    timing_ms = {
+        "upload_raw": cuda_ms(lambda: engine._upload(ext0), 20),
+        "upload_encoded": cuda_ms(lambda: engine._upload(p0.c_ext), 20),
+        "decode": cuda_ms(lambda: _decode_stream(c_dev, table, t_pad=p0.t_pad, p_pad=p0.p_pad,
+                                                 nspans=(ext0.size - p0.t_pad) // 2), 20),
+    }
+    print(json.dumps({"compress": {
+        "works": len(works), "batches": stats.num_batches, "encoded": len(enc),
+        "raw": stats.num_batches - len(enc), "misses": [p.misses for p in enc],
+        "patch_budget": sorted({p.p_pad for p in enc}),
+        "bytes_per_batch_raw": raw_bytes, "bytes_per_batch_sent": sent_bytes,
+        "table_uploads": engine.table_uploads, "table_bytes": table_bytes,
+        "upload_ratio": (sum(sent_bytes) + table_bytes) / sum(raw_bytes),
+        "vocab_size": engine._venc.size,
+        "e2e_seconds_in_turns": {"raw": [raw_s, raw2_s], "compressed": [seconds, warm_s]},
+        "s_batchgen_in_turns": {
+            "raw": [raw_stats.extra["s_batchgen"], raw2_stats.extra["s_batchgen"]],
+            "compressed": [stats.extra["s_batchgen"], warm_stats.extra["s_batchgen"]]},
+        "encode_host_seconds": sum(enc_s), "encode_host_seconds_max_batch": max(enc_s),
+        "one_batch_ms": timing_ms,
+        "stage_seconds": {"raw": raw_stats.extra, "compressed": stats.extra},
+        "rows": len(rows), "rows_equal": same, "parity": parity, "launches": launches,
+    }}), flush=True)
+    no_host_sync(engine, works, "compress", encoded=True)
+    patches = compress_patches(index, cfg, device)
+    done("compress", t0, f"{len(enc)} of {stats.num_batches} batches encoded, every "
+                         f"decode bit-exact; search {seconds:.3f}s, {warm_s:.3f}s (raw "
+                         f"{raw_s:.3f}s, {raw2_s:.3f}s); rows "
+                         f"equal the raw run's ({len(rows)}), parity {parity}; patch "
+                         f"world: misses {patches['misses']}, {patches['raw']} batches "
+                         f"raw, {patches['table_uploads']} table uploads")
+    return launches
+
+
+def decoded_search(engine, works):
+    """``search`` on a compressing engine, each batch's payload and its
+    device stream_ext logged; after the run every decoded stream_ext is
+    read back and must equal the raw buffer it encodes, bit for bit.
+    Returns (rows, stats, seconds, [(raw ext, payload)], encoder host
+    seconds a batch)."""
+    import numpy as np
+
+    sent, on_dev, enc_s = [], [], []
+    encode, to_dev = engine._encode_payload, engine._device_ext
+
+    def encode_logged(ext, *a):
+        t = time.perf_counter()
+        sent.append((ext, encode(ext, *a)))
+        enc_s.append(time.perf_counter() - t)
+        return sent[-1][1]
+
+    def to_dev_logged(payload, nspans):
+        on_dev.append(to_dev(payload, nspans))
+        return on_dev[-1]
+
+    engine._encode_payload, engine._device_ext = encode_logged, to_dev_logged
+    try:
+        rows, stats, seconds = search(engine, works)
+    finally:
+        engine._encode_payload, engine._device_ext = encode, to_dev
+    check(len(sent) == len(on_dev) == stats.num_batches,
+          f"{len(sent)} payloads, {len(on_dev)} device streams, {stats.num_batches} batches")
+    for i, ((ext, _), dev) in enumerate(zip(sent, on_dev)):
+        check(np.array_equal(dev.cpu().numpy(), ext.view(np.int32)),
+              f"batch {i}: the decoded stream_ext differs from the raw buffer")
+    return rows, stats, seconds, sent, enc_s
+
+
+def compress_patches(index, cfg, device="cuda", words: int = 7500):
+    """The decode's patch path: four batches of eight works at batch_queries
+    2^16 (patch budget 4,096), over a 16,000-word vocabulary that the
+    10k-work world's script does not use.  Batch 1 (words 0-3,999)
+    bootstraps the table; batch 2 (the same words, three script quotes a
+    work) carries the quotes as real patches, admitted after it; batch 3
+    (words 4,000-15,999) misses on every word and goes raw, its words
+    admitted by count; batch 4 (all 16,000 words and quotes) is encoded
+    against a table that grew, so the table goes up again.  Every decoded
+    stream_ext is read back bit-exact and the rows equal a raw engine's."""
+    import dataclasses
+
+    import numpy as np
+
+    from fandom_search_tpu_torch.search.engine import EncodedBatch, SearchEngine
+    from fandom_search_tpu_torch.utils.synthetic import make_corpus_with_quotes, make_vocab
+
+    rng = np.random.default_rng(29)
+    vocab = make_vocab(rng, 16_000)
+    lines = [ln.text for ln in index.lines]
+    works = {}
+    for group, words_of, quotes in (("a", vocab[:4000], 0), ("b", vocab[:4000], 3),
+                                    ("c", vocab[4000:], 0), ("d", vocab, 3)):
+        part, _ = make_corpus_with_quotes(rng, lines, num_works=8, words_per_work=words,
+                                          quotes_per_work=quotes, vocab=words_of)
+        works.update({f"{group}{w}": t for w, t in part.items()})
+    pcfg = dataclasses.replace(cfg, search=dataclasses.replace(cfg.search,
+                                                               batch_queries=1 << 16))
+    raw_rows, _, _ = search(SearchEngine(index, pcfg, device=device), works)
+    ccfg = dataclasses.replace(pcfg, search=dataclasses.replace(pcfg.search,
+                                                                stream_compress=True))
+    engine = SearchEngine(index, ccfg, device=device)
+    rows, stats, _, sent, _ = decoded_search(engine, works)
+    enc = [p for _, p in sent if isinstance(p, EncodedBatch)]
+    out = dict(batches=stats.num_batches, encoded=len(enc), raw=stats.num_batches - len(enc),
+               misses=[p.misses for p in enc], patch_budget=sorted({p.p_pad for p in enc}),
+               table_uploads=engine.table_uploads, vocab_size=engine._venc.size,
+               rows=len(rows))
+    print(json.dumps({"compress_patches": out}), flush=True)
+    check(_csv_rows(rows) == _csv_rows(raw_rows) and rows,
+          f"patch world: compressed rows ({len(rows)}) differ from the raw run's "
+          f"({len(raw_rows)}), or there are none")
+    check(any(m > 0 for m in out["misses"]), "patch world: no encoded batch carried a patch")
+    check(any(not isinstance(p, EncodedBatch) for _, p in sent[1:]),
+          "patch world: no batch after the first went raw")
+    check(out["table_uploads"] > 1, "patch world: the table went up once only")
+    return out
+
+
+def mesh_devices(n: int):
+    """``n`` CUDA devices for a grid, and which they are: distinct cards
+    when the machine has ``n``, else the cards named in turn (on a machine
+    with one card, ``n`` logical shards of cuda:0)."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count >= n:
+        return [f"cuda:{i}" for i in range(n)], f"{n} distinct devices"
+    if count == 1:
+        return ["cuda:0"] * n, f"{n} logical shards on cuda:0 (1 card)"
+    return [f"cuda:{i % count}" for i in range(n)], f"{n} shards on {count} cards in turn"
+
+
+def sharded_step_vs_plain(engine, works, sw_route="K4"):
+    """One fused step of the sharded engine on the first batch, each kernel
+    call held to its plain version on the same inputs, at the shapes the
+    path gives them: on the exact candidate stage K1 on each works slice
+    with its halo, K2 on each (works slice x script shard) block (the
+    last, partial shard included) and the merged top-k of each slice
+    against single-device K2 (and plain) on the whole script in values and
+    indices; on any stage every K3 compaction of the engine's module, and
+    the verify on each works shard, launched on ``sw_route`` ("K4", or
+    "K5 packed" for K5's int16 route) alone.  Returns a dict per kernel."""
+    import torch
+
+    from fandom_search_tpu_torch.data.fast_tokenizer import tokenize_many
+    from fandom_search_tpu_torch.ops.distance_topk import min_keep_int, topk_dot_plain
+    from fandom_search_tpu_torch.ops.embed import embed_shingles_plain
+    from fandom_search_tpu_torch.ops.scan import nonzero_compact_plain
+    from fandom_search_tpu_torch.ops.smith_waterman import (
+        sw_lane, sw_normalized_plain, sw_wide,
+    )
+    from fandom_search_tpu_torch.parallel import sharded as S
+    from fandom_search_tpu_torch.search import engine as E
+
+    dix = engine._dix
+    items = sorted(tokenize_many(dict(sorted(works.items())[:1000])).items())
+    ext, nspans, _, _ = next(iter(engine._batches(items)))
+    ext_dev = engine._upload(ext)
+    orig = dict(embed=S.embed_shingles, topk=S.topk_dot, block=S._block_topk,
+                compact=E.nonzero_compact, sw=S.sw_normalized)
+    res = {k: [] for k in ("K1", "K2", "merged", "K3", sw_route)}
+    # the counter that sw_route moves: (K4, K5 packed, K5 f32)
+    route_at = {"K4": 0, "K5 packed": 1}[sw_route]
+
+    def embed(tok, mults):
+        got = orig["embed"](tok, mults)
+        check(torch.equal(got, embed_shingles_plain(tok, mults)),
+              f"K1 on a works slice of {tok.shape[0]} tokens differs from plain")
+        res["K1"].append(dict(tokens=tok.shape[0], rows=got.shape[0],
+                              ms=cuda_ms(lambda: orig["embed"](tok, mults), 5)))
+        return got
+
+    def topk(q, s, ns, k, *, min_keep):
+        got = orig["topk"](q, s, ns, k, min_keep=min_keep)
+        want = topk_dot_plain(q, s, ns, k, min_keep_int(min_keep, q.shape[1]))
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"K2 on a {q.shape[0]} x {s.shape[0]} block (ns_valid {ns}) differs from plain")
+        res["K2"].append(dict(rows=q.shape[0], shard_rows=s.shape[0], ns_valid=ns,
+                              ms=cuda_ms(lambda: orig["topk"](q, s, ns, k, min_keep=min_keep),
+                                         5)))
+        return got
+
+    def block(row, q_l, shards, ns_valid, per, k, min_keep):
+        got = orig["block"](row, q_l, shards, ns_valid, per, k, min_keep)
+        ns, main = dix.s_emb.shape[0], dix.s_emb.device
+        q_m = q_l.to(main)
+        with torch.cuda.device(main):
+            single = orig["topk"](q_m, dix.s_emb, ns, k, min_keep=min_keep)
+            plain = topk_dot_plain(q_m, dix.s_emb, ns, k, min_keep_int(min_keep, q_l.shape[1]))
+        for what, want in (("single-device K2", single), ("plain", plain)):
+            check(torch.equal(got[0].to(main), want[0])
+                  and torch.equal(got[1].to(main), want[1]),
+                  f"the merged top-k of a works slice differs from {what} on the whole script")
+        res["merged"].append(dict(rows=q_l.shape[0], shards=len(shards), ns=ns))
+        return got
+
+    def compact(mask, size):
+        got = orig["compact"](mask, size)
+        check(torch.equal(got, nonzero_compact_plain(mask, size)),
+              f"K3 compaction of {mask.numel()} to {size} differs from plain")
+        res["K3"].append(dict(n=mask.numel(), set=int(mask.sum()), size=size))
+        return got
+
+    def sw(a, b, len_a, len_b, c):
+        n0 = (sw_wide.launches, sw_lane.launches_i16, sw_lane.launches_f32)
+        got = orig["sw"](a, b, len_a, len_b, c)
+        moved = tuple(x - y for x, y in zip(
+            (sw_wide.launches, sw_lane.launches_i16, sw_lane.launches_f32), n0))
+        check(torch.equal(got, sw_normalized_plain(a, b, len_a, len_b, c.sw_match,
+                                                   c.sw_mismatch, c.sw_gap)),
+              f"{sw_route} on a works shard of {a.shape[0]} pairs differs from plain")
+        check(a.device.type == "cpu" or 0 < moved[route_at] == sum(moved),
+              f"the verify of a works shard launched (K4, K5 packed, K5 f32) {moved}, "
+              f"not {sw_route} alone")
+        res[sw_route].append(dict(pairs=a.shape[0], live=int((len_a > 0).sum()),
+                                  launches=moved))
+        return got
+
+    S.embed_shingles, S.topk_dot, S._block_topk = embed, topk, block
+    E.nonzero_compact, S.sw_normalized = compact, sw
+    try:
+        engine._fused_call(ext_dev, nspans, engine._cand_budget, engine._verify_budget)
+        torch.cuda.synchronize()
+    finally:
+        S.embed_shingles, S.topk_dot, S._block_topk = orig["embed"], orig["topk"], orig["block"]
+        E.nonzero_compact, S.sw_normalized = orig["compact"], orig["sw"]
+    works_ax, script_ax = (engine.mesh.shape[a] for a in ("works", "script"))
+    exact = engine._candidates_fn == engine._exact_candidates
+    want = {"K1": works_ax, "K2": works_ax * script_ax, "merged": works_ax,
+            sw_route: works_ax}
+    if not exact:
+        want.update(K1=0, K2=0, merged=0)
+    got = {k: len(v) for k, v in res.items()}
+    check(all(got[k] == n for k, n in want.items()) and res["K3"],
+          f"the sharded step made {got} kernel calls, not {want} and a K3 compaction")
+    check(not exact or engine._ns_valid_shards[-1] < engine._ns_per_shard,
+          f"the last script shard is not partial: {engine._ns_valid_shards}")
+    return res
+
+
+def sharded_end_to_end(index, cfg, works, planted, exact_rows, oracle, exact_s,
+                       sample: int = 600, device="cuda"):
+    """Phase 14: the sharded engine on a 2 x 2 mesh (distinct devices when
+    the machine has four, else four logical shards of cuda:0): the first
+    batch's step with every kernel held to plain, the 10k-work search
+    counted (rows equal the single-device exact rows, sample parity 1.0),
+    one step under sync debug mode; then over ``sample`` works the mesh
+    with stream compression, with the LSH prefilter at sw_variant fast,
+    with attach_bucketed_prefilter and with
+    attach_bucketed_prefilter_sharded, each row set equal to one device's."""
+    import dataclasses
+
+    from fandom_search_tpu_torch import BucketedConfig, LSHConfig
+    from fandom_search_tpu_torch.config import MeshConfig
+    from fandom_search_tpu_torch.ops.bucketed import attach_bucketed_prefilter
+    from fandom_search_tpu_torch.ops.lsh import attach_lsh_prefilter
+    from fandom_search_tpu_torch.parallel.mesh import make_mesh
+    from fandom_search_tpu_torch.parallel import sharded_bucketed as SB
+    from fandom_search_tpu_torch.parallel.sharded import ShardedSearchEngine
+    from fandom_search_tpu_torch.search.engine import SearchEngine
+
+    t0 = phase("sharded")
+    devices, which = mesh_devices(4)
+    print(f"[sharded] mesh 2x2 on {which}", flush=True)
+    mcfg = dataclasses.replace(cfg, mesh=MeshConfig(works=2, script=2))
+    mesh = make_mesh(mcfg.mesh, devices)
+    engine = ShardedSearchEngine(index, mcfg, mesh=mesh)
+    held = sharded_step_vs_plain(engine, works)
+    (rows, stats, seconds), launches = counted("exact", lambda: search(engine, works))
+    same = _csv_rows(rows) == _csv_rows(exact_rows)
+    check(same, f"sharded rows ({len(rows)}) differ from one device's ({len(exact_rows)})")
+    parity = sample_parity(rows, oracle, "sharded")
+    found = {(r.work_id, r.line_no) for r in rows}
+    check(all((p.work_id, p.line_no) in found for p in planted),
+          "the sharded path missed a planted quote")
+    no_host_sync(engine, works, "sharded")
+    out = {"mesh": "2x2", "devices": which, "works": len(works),
+           "ns_valid_shards": engine._ns_valid_shards, "shard_rows": engine._ns_per_shard,
+           "e2e_seconds": seconds, "single_device_e2e_seconds": exact_s,
+           "stage_seconds": stats.extra, "batches": stats.num_batches, "rows": len(rows),
+           "rows_equal": same, "parity": parity, "launches": launches, "held_to_plain": held}
+    by_path = {"sharded": launches}
+    del engine
+
+    ids = sorted(works)[:sample]
+    sub = {w: works[w] for w in ids}
+    want = [r for r in _csv_rows(exact_rows) if r[0] in set(ids)]
+
+    def sub_run(path, eng, expect, what):
+        (r, _, s), n = counted(path, lambda: search(eng, sub))
+        check(_csv_rows(r) == expect, f"sharded {what}: rows ({len(r)}) differ from one "
+                                      f"device's ({len(expect)})")
+        out[f"{path}_seconds"] = s
+        by_path[path] = n
+        return eng
+
+    ccfg = dataclasses.replace(mcfg, search=dataclasses.replace(mcfg.search,
+                                                                stream_compress=True))
+    eng = sub_run("sharded_compress", ShardedSearchEngine(index, ccfg, mesh=mesh), want,
+                  "with stream_compress")
+    check(eng._venc.ready and eng.table_uploads > 0, "the sharded compressed run sent no "
+                                                     "encoded batch")
+    lcfg = dataclasses.replace(mcfg, search=dataclasses.replace(mcfg.search, sw_variant="fast"))
+    single = SearchEngine(index, lcfg, device=device)
+    attach_lsh_prefilter(single, LSHConfig())
+    lsh_want = _csv_rows(single.search_works(sub)[0])
+    eng = ShardedSearchEngine(index, lcfg, mesh=mesh)
+    attach_lsh_prefilter(eng, LSHConfig())
+    out["held_to_plain_lsh"] = sharded_step_vs_plain(eng, sub, sw_route="K5 packed")
+    sub_run("sharded_lsh", eng, lsh_want, "with --lsh --sw-variant fast")
+    eng = ShardedSearchEngine(index, mcfg, mesh=mesh)
+    attach_bucketed_prefilter(eng, BucketedConfig())
+    check(eng._bucketed_risk_budget is None, "the 10k-work world took the hybrid route")
+    sub_run("sharded_bucketed", eng, want, "with attach_bucketed_prefilter")
+    eng = ShardedSearchEngine(index, mcfg, mesh=mesh)
+    SB.attach_bucketed_prefilter_sharded(eng, BucketedConfig())
+    tok = first_batch_stream(eng, sub)
+    out["held_to_plain_bucketed_sharded"], _ = stage_vs_plain(
+        "sharded bucketed stage", lambda: eng._candidates_fn(tok, max_out=eng._cand_budget),
+        also=(SB,))
+    sub_run("sharded_bucketed_sharded", eng, want, "with attach_bucketed_prefilter_sharded")
+    print(json.dumps({"sharded": out}), flush=True)
+    done("sharded", t0, f"mesh 2x2 on {which}: search {seconds:.3f}s (one device "
+                        f"{exact_s:.3f}s), rows equal one device's ({len(rows)}), parity "
+                        f"{parity}; {sample} works with compression, --lsh fast and both "
+                        f"bucketed attaches equal one device's")
+    return by_path
+
+
+def dryrun_world(works_ax: int):
+    """``__graft_entry__.py``'s ``dryrun_multichip`` world: seed 7, 15
+    uniform and 15 stopword-led lines (their word pairs overflow the
+    bucketed cap), 40 works and one work longer than the batch cap
+    (works_ax * 512 tokens)."""
+    import numpy as np
+
+    from fandom_search_tpu_torch.data.script_parser import parse_script
+    from fandom_search_tpu_torch.utils.synthetic import (
+        make_corpus_with_quotes, make_script, make_vocab,
+    )
+
+    rng = np.random.default_rng(7)
+    vocab = make_vocab(rng, 500)
+    uniform_txt = make_script(rng, vocab, num_lines=15)
+    skew_txt = "\n".join(
+        "ALICE: of the of the " + " ".join(rng.choice(vocab, size=6).tolist())
+        for _ in range(15))
+    lines = parse_script(uniform_txt + "\n" + skew_txt)
+    works, _ = make_corpus_with_quotes(
+        rng, [ln.text for ln in lines], num_works=40, words_per_work=150,
+        quotes_per_work=3, vocab=vocab)
+    long_w, _ = make_corpus_with_quotes(
+        rng, [ln.text for ln in lines], num_works=1,
+        words_per_work=works_ax * 512 + 700, quotes_per_work=6, vocab=vocab)
+    works["workzlong"] = long_w["work00000"]
+    return lines, works
+
+
+def sharded_dryrun():
+    """Phase 15: the dry-run world on a 2 x 4 mesh, the fused sharded
+    engine and the sharded bucketed hybrid: rows equal to the port's
+    oracle, the hybrid's at-risk count above 0."""
+    import dataclasses
+
+    from fandom_search_tpu_torch import BucketedConfig, PipelineConfig
+    from fandom_search_tpu_torch.config import MeshConfig
+    from fandom_search_tpu_torch.parallel.mesh import make_mesh
+    from fandom_search_tpu_torch.parallel import sharded_bucketed as SB
+    from fandom_search_tpu_torch.parallel.sharded import ShardedSearchEngine
+    from fandom_search_tpu_torch.search.index import build_script_index
+    from fandom_search_tpu_torch.search.oracle import search_works_oracle
+
+    t0 = phase("sharded dryrun")
+    devices, which = mesh_devices(8)
+    cfg = PipelineConfig(mesh=MeshConfig(works=2, script=4))
+    cfg = dataclasses.replace(cfg, search=dataclasses.replace(cfg.search, batch_queries=1024))
+    lines, works = dryrun_world(2)
+    index = build_script_index(lines, cfg.shingle, cfg.search)
+    orows, _ = search_works_oracle(works, index, cfg)
+    want = _csv_rows(orows)
+    check(len(want) >= 100, f"dry-run world too sparse: {len(want)} oracle rows")
+    mesh = make_mesh(cfg.mesh, devices)
+    fused = ShardedSearchEngine(index, cfg, mesh=mesh)
+    check(fused._ns_valid_shards[1:] == [0] * 3,
+          f"script shards {fused._ns_valid_shards}: expected three past the script's end")
+    held = sharded_step_vs_plain(fused, works)
+    (rows, stats, s1), n_fused = counted("exact", lambda: search(fused, works))
+    check(_csv_rows(rows) == want, f"dry run, fused: {len(rows)} rows against the "
+                                   f"oracle's {len(want)}")
+    hyb = ShardedSearchEngine(index, cfg, mesh=mesh)
+    SB.attach_bucketed_prefilter_sharded(hyb, BucketedConfig())
+    check(hyb.bucketed.overflow_frac > 0 and hyb._bucketed_risk_budget is not None,
+          "the dry-run world no longer takes the hybrid route")
+    # the first batch holds at-risk rows, so K2's rescue has entries to hold
+    tok = first_batch_stream(hyb, works)
+    held_hyb, _ = stage_vs_plain("sharded hybrid stage", lambda: hyb._candidates_fn(
+        tok, max_out=hyb._cand_budget, risk_budget=hyb._bucketed_risk_budget), also=(SB,))
+    (rows2, stats2, s2), n_hyb = counted("bucketed_hybrid", lambda: search(hyb, works))
+    check(_csv_rows(rows2) == want, f"dry run, bucketed hybrid: {len(rows2)} rows against "
+                                    f"the oracle's {len(want)}")
+    check(hyb._bucketed_risk_queries > 0, "the hybrid rerouted no at-risk query")
+    print(json.dumps({"sharded_dryrun": {
+        "mesh": "2x4", "devices": which, "works": len(works), "oracle_rows": len(want),
+        "query_shingles": stats.num_query_shingles, "fused_seconds": s1,
+        "hybrid_seconds": s2, "overflow_frac": hyb.bucketed.overflow_frac,
+        "risk_queries": hyb._bucketed_risk_queries,
+        "bucketed_risk_frac": stats2.extra.get("bucketed_risk_frac"),
+        "ns_valid_shards": fused._ns_valid_shards, "held_to_plain": held,
+        "held_to_plain_hybrid": held_hyb,
+        "launches": {"fused": n_fused, "hybrid": n_hyb},
+    }}), flush=True)
+    done("sharded dryrun", t0, f"mesh 2x4 on {which}: both paths equal the oracle's "
+                               f"{len(want)} rows; {hyb._bucketed_risk_queries} at-risk "
+                               f"queries rerouted")
+    return {"dryrun_fused": n_fused, "dryrun_hybrid": n_hyb}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--works", type=int, default=10_000)
@@ -2008,8 +2549,13 @@ def main(argv=None) -> int:
     res["hamming_topk"]["new_shapes"] = hamming_wide_check(engine, q_emb)
     del q_emb
     launches = {}
-    exact_rows, launches["exact"] = end_to_end(engine, works, planted, index, cfg)
+    exact_rows, launches["exact"], exact_s, oracle = end_to_end(
+        engine, works, planted, index, cfg)
     no_host_sync(engine, works, "exact")
+    launches["compress"] = compress_end_to_end(index, cfg, works, engine, exact_rows, oracle)
+    launches.update(sharded_end_to_end(index, cfg, works, planted, exact_rows, oracle,
+                                       exact_s))
+    launches.update(sharded_dryrun())
     launches["lsh"] = lsh_end_to_end(index, cfg, works, planted, exact_rows)
     launches["lsh_f32"] = lsh_f32_path(index, cfg, works, planted)
     launches["bucketed"] = bucketed_end_to_end(index, cfg, works, planted, exact_rows)

@@ -5,7 +5,8 @@
     python -m fandom_search_tpu_torch search WORKS_DIR (SCRIPT ... | --index idx/) \\
         -o matches.csv [--parquet] [--resume-dir DIR] [--profile DIR] \\
         [--lsh | --bucketed [--bucketed-pairs triangles|all]] \\
-        [--sw-variant VARIANT] [--selfcheck N] [--oracle] [search flags]
+        [--sw-variant VARIANT] [--stream-compress] [--shards N | --mesh WxS] \\
+        [--selfcheck N] [--oracle] [search flags]
     python -m fandom_search_tpu_torch serve (SCRIPT ... | --index idx/) \\
         [--host 127.0.0.1] [--port 8765] [--no-warm] [search flags]
     python -m fandom_search_tpu_torch matrix matches.csv -o matrix.csv \\
@@ -21,6 +22,11 @@ bucketed prefilter (``ops/bucketed.py``: bucket probes, exact dots of
 the pairs found, K2 for queries that probe an over-cap bucket);
 ``--sw-variant`` picks the Smith-Waterman kernel: fast, r2 and dyn run
 K5, wide, exitw and slide run K4 (the same scores).
+``--stream-compress`` uploads the exact path's batches as u16 vocab ids
+plus patches, decoded on the device (``search/vocab_stream.py``).
+``--shards N`` / ``--mesh WxS`` run the search on a works x script grid
+of CUDA devices (``parallel/sharded.py``; with ``--device cpu``, the CPU
+named W * S times).
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the search.
 ``--device`` defaults to ``cuda`` and fails when CUDA is missing;
 ``--device cpu`` is the explicit way to run the kernels' plain PyTorch
@@ -66,6 +72,16 @@ def _add_search_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--lookahead-batches", type=int, default=None,
                    help="batches in flight ahead of result consumption "
                         "(default 1)")
+    p.add_argument("--stream-compress", action="store_true", default=None,
+                   help="u16 vocab-id compression of the exact path's "
+                        "query-stream upload, decoded on the device "
+                        "(lossless; about half the upload bytes)")
+    p.add_argument("--shards", type=int, default=None,
+                   help="shard the corpus across N devices (data parallel; "
+                        "shorthand for --mesh Nx1)")
+    p.add_argument("--mesh", default=None, metavar="WxS",
+                   help="device mesh: W works-shards x S script-shards "
+                        "(e.g. 4x2)")
     p.add_argument("--sw-variant", default=None, dest="sw_variant",
                    choices=("fast", "r2", "dyn", "wide", "exitw", "slide"),
                    help="Smith-Waterman variant (default wide): fast, r2 "
@@ -107,12 +123,30 @@ def _device(args):
         raise SystemExit(2) from e
 
 
+def _mesh_from_args(args):
+    """The MeshConfig of --mesh WxS or --shards N, else None."""
+    from fandom_search_tpu_torch.config import MeshConfig
+
+    mesh = getattr(args, "mesh", None)
+    if mesh is not None:
+        try:
+            w, s = (int(x) for x in mesh.lower().split("x"))
+        except ValueError:
+            raise SystemExit(f"error: --mesh must look like WxS, got {mesh!r}")
+        return MeshConfig(works=w, script=s)
+    shards = getattr(args, "shards", None)
+    if shards is not None:
+        return MeshConfig(works=shards)
+    return None
+
+
 def _runtime_overrides(args) -> dict:
     """Runtime-only SearchConfig fields the user explicitly set."""
     out = {}
     for field in ("k", "candidate_threshold", "verify_threshold", "chain_gap",
-                  "batch_queries", "lookahead_batches", "sw_variant"):
-        v = getattr(args, field)
+                  "batch_queries", "lookahead_batches", "stream_compress",
+                  "sw_variant"):
+        v = getattr(args, field, None)
         if v is not None:
             out[field] = v
     return out
@@ -120,7 +154,7 @@ def _runtime_overrides(args) -> dict:
 
 def _pipeline_config(args):
     from fandom_search_tpu_torch.config import (
-        BucketedConfig, PipelineConfig, SearchConfig, ShingleConfig,
+        BucketedConfig, MeshConfig, PipelineConfig, SearchConfig, ShingleConfig,
     )
 
     sh_kw = {}
@@ -135,6 +169,7 @@ def _pipeline_config(args):
         shingle=shingle,
         search=dataclasses.replace(SearchConfig(), **_runtime_overrides(args)),
         bucketed=bucketed,
+        mesh=_mesh_from_args(args) or MeshConfig(),
     )
 
 
@@ -162,6 +197,9 @@ def _overlay_runtime(cfg, args):
         cfg = dataclasses.replace(
             cfg, search=dataclasses.replace(cfg.search, **over)
         )
+    mesh = _mesh_from_args(args)
+    if mesh is not None:
+        cfg = dataclasses.replace(cfg, mesh=mesh)
     pairs = getattr(args, "bucketed_pairs", None)
     if pairs is not None:
         cfg = dataclasses.replace(
@@ -270,12 +308,19 @@ def cmd_index(args) -> int:
 
 
 def _build_engine(args, cfg, index, device):
-    """The engine on ``device`` with the flags' prefilter attached."""
-    from fandom_search_tpu_torch.search.engine import SearchEngine
-
+    """The engine on ``device`` (a ``ShardedSearchEngine`` over the
+    mesh's devices when it has more than one) with the flags' prefilter
+    attached."""
     if args.lsh and args.bucketed:
         raise SystemExit("error: --lsh and --bucketed are exclusive")
-    eng = SearchEngine(index, cfg, device=device)
+    if cfg.mesh.num_devices > 1:
+        from fandom_search_tpu_torch.parallel.sharded import ShardedSearchEngine
+
+        eng = ShardedSearchEngine(index, cfg, device=device)
+    else:
+        from fandom_search_tpu_torch.search.engine import SearchEngine
+
+        eng = SearchEngine(index, cfg, device=device)
     if args.lsh:
         from fandom_search_tpu_torch.ops.lsh import attach_lsh_prefilter
 

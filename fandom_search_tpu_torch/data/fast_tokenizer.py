@@ -5,6 +5,9 @@ The C++ source is this package's own copy of the JAX package's
 original by the tests), compiled with g++ into this package's ``build/``
 directory.  Without a compiler the pure-Python tokenizer runs instead
 (``get_lib()`` is then None); the two are byte-for-byte equivalent.
+The library also carries the stream encoder's probe scan
+(``fs_encode_stream``, ``search/vocab_stream.py``) and the bucketed
+table build (``fs_bucketed_table``, ``ops/bucketed.py``).
 """
 
 from __future__ import annotations
@@ -61,6 +64,17 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_uint32),
         ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.fs_encode_stream.restype = ctypes.c_int64
+    lib.fs_encode_stream.argtypes = [
+        ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,  # stream, n
+        ctypes.POINTER(ctypes.c_uint32),                  # probe keys
+        ctypes.POINTER(ctypes.c_uint32),                  # probe values
+        ctypes.c_uint32,                                  # probe mask
+        ctypes.POINTER(ctypes.c_uint16),                  # ids out
+        ctypes.POINTER(ctypes.c_int64),                   # miss positions out
+        ctypes.POINTER(ctypes.c_uint32),                  # miss hashes out
+        ctypes.c_int64,                                   # miss cap
     ]
     lib.fs_bucketed_table.restype = ctypes.c_int64
     lib.fs_bucketed_table.argtypes = [

@@ -436,14 +436,18 @@ def _rank_compact(row_s, neg_s, sid_s, pair_count, *, k: int, dim: int, max_out:
 
 
 def _stage_parts(stream, q_emb, entries, offsets, s_emb, *, n, cap, num_buckets, salts,
-                 k, dim, threshold, max_out, pairs_mode, risk_budget=None, ns_valid=None):
+                 k, dim, threshold, max_out, pairs_mode, risk_budget=None, ns_valid=None,
+                 drop_risk=None):
     """The candidate stage run part by part: {name: (part, result)} in
     order, where ``part()`` reruns that part alone on what the parts
     before it made, so that each can be timed alone.  The flat path ends
-    at "compaction", whose result is (qpos, sidx, score, count).  With a
+    at "compaction", whose result is (qpos, sidx, score, count);
+    "geometry"'s third result is the at-risk mask.  With a
     ``risk_budget`` it drops the at-risk queries and "risk_rows" adds
     their rows ((rows, count)); with ``ns_valid`` as well, "stage2" runs
-    K2 on them and "merge" joins the two triple sets."""
+    K2 on them and "merge" joins the two triple sets.  ``drop_risk``
+    drops the at-risk queries without a ``risk_budget`` (the sharded
+    hybrid compacts their rows across shards)."""
     if stream.shape[0] < n:
         raise ValueError(
             f"query stream of {stream.shape[0]} tokens is shorter than "
@@ -456,13 +460,14 @@ def _stage_parts(stream, q_emb, entries, offsets, s_emb, *, n, cap, num_buckets,
         return parts[name][1]
 
     hybrid = risk_budget is not None
+    drop = hybrid if drop_risk is None else drop_risk
     p = len(_pairs_for(n, pairs_mode))
     pair_budget = _pair_budget(stream.shape[0] - n + 1, p, max_out)
     start, ln, at_risk = run("geometry", lambda: _probe_geometry(
         stream, offsets, n=n, cap=cap, num_buckets=num_buckets, salts=salts,
         pairs_mode=pairs_mode))
     row, sid, valid, pair_count = run("segment_stream", lambda: _stream_pairs(
-        start, ln, at_risk, entries, pair_budget=pair_budget, drop_risk=hybrid))
+        start, ln, at_risk, entries, pair_budget=pair_budget, drop_risk=drop))
     dot = run("gather_dot", lambda: _gather_dot(q_emb, s_emb, row, sid))
     row_s, neg_s, sid_s = run("sort", lambda: _rank_sort(
         row, sid, dot, valid, dim=dim, threshold=threshold))
@@ -670,6 +675,8 @@ def attach_bucketed_prefilter(engine, cfg: BucketedConfig,
                                    **kw)
 
     engine._candidates_fn = candidates
+    # uploads go raw, as on the JAX engine's two-stage prefilter flow
+    engine._venc = None
 
 
 def _next_qpow2(n: int, floor: int) -> int:

@@ -15,6 +15,12 @@ queries that probe an over-cap bucket).  The host pulls one f32
 overflowed, and chains the hits into MatchRows.  Inside the device step
 nothing syncs with the host: no nonzero, no boolean-mask indexing, no
 .item().
+
+With ``stream_compress`` the exact path uploads a batch as u16 vocab
+ids plus a patch list (``search/vocab_stream.py``), and
+``_decode_stream`` rebuilds the u32 stream on the device before the
+step, bit for bit.  ``parallel/sharded.py`` runs the same step over a
+works x script grid of devices.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import functools
 import logging
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +45,7 @@ from fandom_search_tpu_torch.ops.smith_waterman import sw_normalized
 from fandom_search_tpu_torch.search.chain import chain_hits_arrays
 from fandom_search_tpu_torch.search.index import ScriptIndex, index_from_numpy
 from fandom_search_tpu_torch.search.types import MatchRow
+from fandom_search_tpu_torch.search.vocab_stream import StreamVocab
 
 log = logging.getLogger(__name__)
 
@@ -209,6 +216,42 @@ class DeviceIndex:
         )
 
 
+class EncodedBatch(NamedTuple):
+    """A batch's compressed upload (``SearchEngine._encode_payload``).
+
+    ``c_ext`` is uint32 [ceil(t_pad / 2) | p_pad | p_pad | 2 * nspans]:
+    the u16 vocab ids packed little-endian two a word, the patch
+    positions (pad slots hold t_pad), the patch hashes, the span table.
+    ``misses`` is the batch's count of out-of-table tokens."""
+
+    c_ext: np.ndarray
+    t_pad: int
+    p_pad: int
+    misses: int
+
+
+def _decode_stream(c_ext: torch.Tensor, table: torch.Tensor, *, t_pad: int,
+                   p_pad: int, nspans: int) -> torch.Tensor:
+    """The int32 [t_pad + 2 * nspans] stream_ext of a compressed upload
+    (``EncodedBatch.c_ext`` as int32), with ``table`` the int32 [65536]
+    vocab table: unpack the u16 ids, gather the table, scatter the
+    patches and re-append the span table.  Bit-exact: every id either
+    hits the entry holding its hash or is overwritten by its patch.
+
+    The high id is masked after the shift, which is arithmetic on int32.
+    Pad patches target slot t_pad of a t_pad + 1 buffer, which is cut
+    (the JAX scatter drops them; here an index past the end would be a
+    device-side assert).  An odd t_pad packs a zero id into the last
+    half-word, which the cut to t_pad drops."""
+    h = (t_pad + 1) // 2
+    v = c_ext[:h]
+    ids = torch.stack([v & 0xFFFF, (v >> 16) & 0xFFFF], dim=1).reshape(-1)[:t_pad]
+    toks = torch.empty((t_pad + 1,), dtype=torch.int32, device=c_ext.device)
+    toks[:t_pad] = table[ids.long()]
+    toks.scatter_(0, c_ext[h : h + p_pad].long(), c_ext[h + p_pad : h + 2 * p_pad])
+    return torch.cat([toks[:t_pad], c_ext[h + 2 * p_pad : h + 2 * p_pad + 2 * nspans]])
+
+
 def _f32(x: float) -> float:
     """``x`` rounded to float32, so comparing an f32 tensor with it
     matches the JAX package's f32 comparison whatever precision torch
@@ -262,7 +305,7 @@ def exact_candidates(stream: torch.Tensor, dix: DeviceIndex, *,
 def fused_step(stream_ext: torch.Tensor, dix: DeviceIndex, *,
                shingle_cfg: ShingleConfig, search_cfg: SearchConfig,
                cand_budget: int, verify_budget: int,
-               nspans: int, candidates_fn=None) -> torch.Tensor:
+               nspans: int, candidates_fn=None, sw_fn=sw_normalized) -> torch.Tensor:
     """One batch on the device: candidates -> dedup -> windows -> SW.
 
     ``stream_ext`` is int32 [T_pad + 2*nspans]: the token stream, then
@@ -270,7 +313,9 @@ def fused_step(stream_ext: torch.Tensor, dix: DeviceIndex, *,
     ``candidates_fn(stream, max_out=...)`` returns what
     ``compact_candidates`` returns, and may add a fifth element, the
     bucketed hybrid's at-risk query count; it defaults to
-    ``exact_candidates``.  Returns f32 [5, verify_budget], the layout of
+    ``exact_candidates``.  ``sw_fn`` scores the verify batch
+    (``sw_normalized``'s signature; the sharded engine splits it over
+    its works devices).  Returns f32 [5, verify_budget], the layout of
     the JAX engine's ``_fused_impl``: rows 0-3 are (qpos, line, score,
     verify_score) of the verified hits; row 4 holds (candidates,
     deduped, verified) in its first three slots and the at-risk count,
@@ -289,7 +334,7 @@ def fused_step(stream_ext: torch.Tensor, dix: DeviceIndex, *,
     return fused_tail(
         stream, sp_start, sp_len, qpos, sidx, score, cand_count, dix,
         n=n, dim=dim, search_cfg=search_cfg, verify_budget=verify_budget,
-        nspans=nspans, risk_count=risk[0] if risk else None,
+        nspans=nspans, risk_count=risk[0] if risk else None, sw_fn=sw_fn,
     )
 
 
@@ -305,7 +350,7 @@ def _stable_sort_perm(keys) -> torch.Tensor:
 
 
 def verify_pairs(stream, script_stream, starts_a, len_a, starts_b, len_b,
-                 search_cfg: SearchConfig) -> torch.Tensor:
+                 search_cfg: SearchConfig, sw_fn=sw_normalized) -> torch.Tensor:
     """Smith-Waterman scores of the windows stream[starts_a : +len_a]
     against script_stream[starts_b : +len_b], in input order.
 
@@ -322,9 +367,7 @@ def verify_pairs(stream, script_stream, starts_a, len_a, starts_b, len_b,
     b = script_stream[
         (starts_b[perm].long()[:, None] + offs_b).clamp(0, script_stream.shape[0] - 1)
     ]
-    vscore_p = sw_normalized(
-        a, b, len_a[perm].int(), len_b[perm].int(), search_cfg
-    )
+    vscore_p = sw_fn(a, b, len_a[perm].int(), len_b[perm].int(), search_cfg)
     vscore = torch.zeros((perm.shape[0],), dtype=torch.float32, device=dev)
     vscore.scatter_(0, perm, vscore_p)
     return vscore
@@ -338,7 +381,7 @@ def _packable(t_pad: int, n_lines: int, width: int) -> bool:
 def fused_tail(stream, sp_start, sp_len, qpos, sidx, score, cand_count,
                dix: DeviceIndex, *, n: int, dim: int,
                search_cfg: SearchConfig, verify_budget: int,
-               nspans: int, risk_count=None) -> torch.Tensor:
+               nspans: int, risk_count=None, sw_fn=sw_normalized) -> torch.Tensor:
     """Dedup -> windows -> verification -> verified-hit compaction."""
     dev = stream.device
     t_pad = stream.shape[0]
@@ -410,7 +453,7 @@ def fused_tail(stream, sp_start, sp_len, qpos, sidx, score, cand_count,
     len_b = (llen - b0).clamp(max=mlt)
 
     vscore = verify_pairs(stream, dix.script_stream, starts_a, len_a,
-                          starts_b, len_b, search_cfg)
+                          starts_b, len_b, search_cfg, sw_fn)
 
     # ---- final compact: only verified hits leave the device -----------
     keep = uvalid & (vscore >= _f32(search_cfg.verify_threshold))
@@ -439,10 +482,6 @@ class SearchEngine:
 
     def __init__(self, index: ScriptIndex, cfg: PipelineConfig, *,
                  device="cuda"):
-        if cfg.search.stream_compress:
-            raise NotImplementedError(
-                "stream_compress (the u16 upload) is not ported yet"
-            )
         self.index = index
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -460,6 +499,17 @@ class SearchEngine:
         self._candidates_fn = functools.partial(
             exact_candidates, dix=self._dix, search_cfg=xcfg
         )
+        # the verify batch's scorer (the sharded engine splits it)
+        self._sw_fn = sw_normalized
+        # u16 stream compression (search/vocab_stream.py): batch 1 goes
+        # raw and frequency-seeds the table.  Only the exact candidate
+        # stage takes encoded uploads, as in the JAX engine, whose
+        # prefilters drop to its raw two-stage flow: attaching one sets
+        # _venc to None.
+        self._venc = StreamVocab() if xcfg.stream_compress else None
+        self._vtab_dev = None
+        self._vtab_ver = -1
+        self.table_uploads = 0
         # The bucketed hybrid's sticky at-risk row budget (None: no
         # hybrid attached; its candidate stage then takes no
         # risk_budget) and its per-search counts of at-risk and all
@@ -479,13 +529,14 @@ class SearchEngine:
 
     def _batches(
         self, items: Iterable[Tuple[str, Tokenized]]
-    ) -> Iterable[Tuple[np.ndarray, int, List[Tuple[str, int, int]], int]]:
+    ) -> Iterable[Tuple[np.ndarray | EncodedBatch, int, List[Tuple[str, int, int]], int]]:
         """Pack works into bucketed token streams.
 
         ``items`` yields (work_id, Tokenized) in sorted order.  Yields
-        (ext uint32 [T_bucket + 2*nspans], nspans, spans, fresh) where
-        spans is [(work_id, stream_offset, num_tokens)] and fresh is the
-        number of not-previously-counted query shingles.
+        (payload, nspans, spans, fresh) where payload is ext uint32
+        [T_bucket + 2*nspans] or, with stream compression, its
+        ``EncodedBatch``; spans is [(work_id, stream_offset, num_tokens)]
+        and fresh is the number of not-previously-counted query shingles.
         """
         cap = self.cfg.search.batch_queries
         n = self.cfg.shingle.n
@@ -539,10 +590,11 @@ class SearchEngine:
             yield self._flush(cur, t_pad_for)
 
     def _flush(self, items, t_pad_for):
-        """One batch's upload buffer, built once: uint32 [stream tokens
-        (t_pad) | span starts (nspans) | span lens (nspans)].  Unused span
-        slots hold a large sentinel start (keeps the searchsorted
-        monotone) and zero length."""
+        """One batch's upload, built once: the raw buffer uint32 [stream
+        tokens (t_pad) | span starts (nspans) | span lens (nspans)], or
+        its ``EncodedBatch`` (``_encode_payload``).  Unused span slots
+        hold a large sentinel start (keeps the searchsorted monotone)
+        and zero length."""
         tokens = sum(len(tk) for _, tk, _ in items)
         t_pad = t_pad_for(tokens)
         nspans = _next_pow2(len(items), 512)
@@ -561,7 +613,58 @@ class SearchEngine:
             spans.append((wid, off, m))
             off += m
             fresh_total += max(0, fresh)
-        return ext, nspans, spans, fresh_total
+        return self._encode_payload(ext, off, t_pad, nspans), nspans, spans, fresh_total
+
+    def _encode_payload(self, ext, valid: int, t_pad: int, nspans: int):
+        """``ext`` itself, or its ``EncodedBatch`` when the vocab encoder
+        is warm and the batch's out-of-table tokens fit the patch budget
+        p_pad = max(4096, t_pad >> stream_patch_shift).  The first batch
+        bootstraps the table and goes raw; a batch over the budget goes
+        raw and its frequencies are admitted; an encoded batch's misses
+        are admitted for later batches (it carries its own patches)."""
+        venc = self._venc
+        if venc is None:
+            return ext
+        stream = ext[:t_pad]
+        if not venc.ready:
+            venc.bootstrap(stream[:valid])
+            return ext
+        p_pad = max(4096, t_pad >> self.cfg.search.stream_patch_shift)
+        ids, mpos, mhash, total = venc.encode(stream, miss_cap=p_pad)
+        if total > p_pad:
+            venc.admit_counted(stream[:valid])
+            return ext
+        venc.admit(mhash)
+        h = (t_pad + 1) // 2
+        if t_pad % 2:
+            ids = np.concatenate([ids, np.zeros(1, np.uint16)])
+        c_ext = np.empty((h + 2 * p_pad + 2 * nspans,), np.uint32)
+        c_ext[:h] = ids.view(np.uint32)
+        c_ext[h : h + p_pad] = t_pad
+        c_ext[h : h + mpos.size] = mpos
+        c_ext[h + p_pad : h + 2 * p_pad] = 0
+        c_ext[h + p_pad : h + p_pad + mhash.size] = mhash
+        c_ext[h + 2 * p_pad :] = ext[t_pad:]
+        return EncodedBatch(c_ext, t_pad, p_pad, int(total))
+
+    def _vocab_table_dev(self) -> torch.Tensor:
+        """The vocab table on the device (int32 [65536], 256 KB), uploaded
+        again only when the table grew since the last upload."""
+        if self._vtab_dev is None or self._vtab_ver != self._venc.version:
+            self._vtab_dev = self._upload(self._venc.table())
+            self._vtab_ver = self._venc.version
+            self.table_uploads += 1
+        return self._vtab_dev
+
+    def _device_ext(self, payload, nspans: int) -> torch.Tensor:
+        """A batch's int32 stream_ext on the device: the raw buffer
+        uploaded, or an encoded one uploaded and decoded there."""
+        if isinstance(payload, EncodedBatch):
+            return _decode_stream(
+                self._upload(payload.c_ext), self._vocab_table_dev(),
+                t_pad=payload.t_pad, p_pad=payload.p_pad, nspans=nspans,
+            )
+        return self._upload(payload)
 
     # -- search ------------------------------------------------------------
 
@@ -600,10 +703,10 @@ class SearchEngine:
             stats.extra["s_batchgen"] += time.perf_counter() - t_g
             if nxt is None:
                 break
-            ext, nspans, spans, fresh = nxt
+            payload, nspans, spans, fresh = nxt
             stats.num_batches += 1
             stats.num_query_shingles += fresh
-            pending.append(self._submit_fused(ext, nspans, spans, stats))
+            pending.append(self._submit_fused(payload, nspans, spans, stats))
             if len(pending) > lookahead:
                 self._process_fused(*pending.pop(0), stats, acc)
         while pending:
@@ -688,12 +791,12 @@ class SearchEngine:
             ext_dev, self._dix,
             shingle_cfg=self.cfg.shingle, search_cfg=self.cfg.search,
             cand_budget=cand_budget, verify_budget=verify_budget,
-            nspans=nspans, candidates_fn=fn,
+            nspans=nspans, candidates_fn=fn, sw_fn=self._sw_fn,
         )
 
-    def _submit_fused(self, ext, nspans, spans, stats: EngineStats):
+    def _submit_fused(self, payload, nspans, spans, stats: EngineStats):
         t0 = time.perf_counter()
-        ext_dev = self._upload(ext)
+        ext_dev = self._device_ext(payload, nspans)
         budgets = (self._cand_budget, self._verify_budget,
                    self._bucketed_risk_budget)
         out = self._fused_call(ext_dev, nspans, *budgets)

@@ -213,10 +213,12 @@ def test_engine_empty_short_and_unsupported(world):
     eng = SearchEngine.from_index(index, PCFG, device="cpu")
     rows, stats = eng.search_works({"empty": "", "short": "two words"})
     assert rows == [] and stats.num_works == 2
-    with pytest.raises(NotImplementedError):
-        SearchEngine.from_index(
-            index, _with_search(PCFG, stream_compress=True), device="cpu"
-        )
+    # stream_compress, once refused, now runs (tests/test_torch_vocab_stream.py)
+    comp = SearchEngine.from_index(
+        index, _with_search(PCFG, stream_compress=True), device="cpu"
+    )
+    rows, stats = comp.search_works({"empty": "", "short": "two words"})
+    assert rows == [] and stats.num_works == 2 and comp._venc is not None
 
 
 def test_engine_refuses_missing_cuda(world, monkeypatch):

@@ -280,9 +280,10 @@ def test_port_file_imports_nothing_of_jax(rel):
 
 def test_package_imports_without_jax():
     """With jax and the JAX package unimportable, the port and its
-    engine, ops (LSH included), persistence, server, runner, report,
-    heatmap, profiler, CLI and corpus generator load, and no module of
-    fandom_search_tpu is loaded."""
+    engine, ops (LSH and bucketed included), the stream encoder, the
+    mesh, the sharded engine and its bucketed prefilter, persistence,
+    server, runner, report, heatmap, profiler, CLI and corpus generator
+    load, and no module of fandom_search_tpu is loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -301,6 +302,11 @@ def test_package_imports_without_jax():
         "import fandom_search_tpu_torch.ops.scan\n"
         "import fandom_search_tpu_torch.ops.smith_waterman\n"
         "import fandom_search_tpu_torch.ops.lsh\n"
+        "import fandom_search_tpu_torch.ops.bucketed\n"
+        "import fandom_search_tpu_torch.search.vocab_stream\n"
+        "import fandom_search_tpu_torch.parallel.mesh\n"
+        "import fandom_search_tpu_torch.parallel.sharded\n"
+        "import fandom_search_tpu_torch.parallel.sharded_bucketed\n"
         "import fandom_search_tpu_torch.scrape.clean\n"
         "import fandom_search_tpu_torch.utils.synthetic\n"
         "import fandom_search_tpu_torch.cli\n"
