@@ -153,7 +153,25 @@ and time:
    every K3 call, the cross-shard compactions, K2's rescue of the
    gathered at-risk rows); rows equal the port's oracle, at-risk queries
    above 0.
-Phases 13-15 run right after phase 4, on its rows and oracle sample.
+16. multihost: a one-rank NCCL world (tcp://127.0.0.1 on a free port,
+   world 1, rank 0) runs the sharded engine on a 2 x 2 grid of the
+   world's cells (four logical shards of cuda:0), every exchange an
+   all_gather, over 600 works: the first batch's step with every K1, K2,
+   merge, K3 and K4 call held to plain, the search counted (rows equal
+   the one-process mesh's and one device's, sample parity 1.0), one step
+   under sync debug mode, the world left; then `search --multihost
+   --num-processes 1 --process-id 0 --coordinator 127.0.0.1:<port> --mesh
+   1x1` and the same search without --multihost on the 600 works written
+   to disk: byte-equal CSVs.  Prints the seconds, the all_gathers and the
+   card's name and power limit.
+17. host verbs, on the host only: `format` on the world's script (one row
+   a script line); `clean` and `getmeta` on three AO3-shaped pages (one
+   broken) where bs4 is installed, `search --reference` on 20 works
+   where sklearn and Levenshtein are (rows equal ReferenceSearch's,
+   planted quotes found); prints which ran and which packages were
+   absent.
+Phases 13-16 run right after phase 4, on its rows and oracle sample;
+phase 17 runs last.
 
 It prints the kernel table as one JSON line, then, as its last line,
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -224,6 +242,8 @@ PATHS = {
     # the dry-run world on a 2 x 4 mesh: fused, and the sharded hybrid
     "dryrun_fused": EXACT,
     "dryrun_hybrid": EXACT,
+    # the sharded engine in a one-rank NCCL world (--multihost)
+    "multihost": EXACT,
 }
 # NVIDIA H100 SXM peaks (data sheet, dense): HBM bytes/s and int8
 # tensor-core operations/s
@@ -2213,7 +2233,9 @@ def sharded_step_vs_plain(engine, works, sw_route="K4"):
     against single-device K2 (and plain) on the whole script in values and
     indices; on any stage every K3 compaction of the engine's module, and
     the verify on each works shard, launched on ``sw_route`` ("K4", or
-    "K5 packed" for K5's int16 route) alone.  Returns a dict per kernel."""
+    "K5 packed" for K5's int16 route) alone.  On a grid of several
+    processes, the calls of the cells this one owns.  Returns a dict per
+    kernel."""
     import torch
 
     from fandom_search_tpu_torch.data.fast_tokenizer import tokenize_many
@@ -2230,7 +2252,7 @@ def sharded_step_vs_plain(engine, works, sw_route="K4"):
     items = sorted(tokenize_many(dict(sorted(works.items())[:1000])).items())
     ext, nspans, _, _ = next(iter(engine._batches(items)))
     ext_dev = engine._upload(ext)
-    orig = dict(embed=S.embed_shingles, topk=S.topk_dot, block=S._block_topk,
+    orig = dict(embed=S.embed_shingles, topk=S.topk_dot, sharded=S.sharded_topk,
                 compact=E.nonzero_compact, sw=S.sw_normalized)
     res = {k: [] for k in ("K1", "K2", "merged", "K3", sw_route)}
     # the counter that sw_route moves: (K4, K5 packed, K5 f32)
@@ -2254,18 +2276,26 @@ def sharded_step_vs_plain(engine, works, sw_route="K4"):
                                          5)))
         return got
 
-    def block(row, q_l, shards, ns_valid, per, k, min_keep):
-        got = orig["block"](row, q_l, shards, ns_valid, per, k, min_keep)
+    def sharded(mesh, q_slices, s_shards, ns_valid, k, *, min_keep, out):
+        got = orig["sharded"](mesh, q_slices, s_shards, ns_valid, k, min_keep=min_keep,
+                              out=out)
         ns, main = dix.s_emb.shape[0], dix.s_emb.device
-        q_m = q_l.to(main)
-        with torch.cuda.device(main):
-            single = orig["topk"](q_m, dix.s_emb, ns, k, min_keep=min_keep)
-            plain = topk_dot_plain(q_m, dix.s_emb, ns, k, min_keep_int(min_keep, q_l.shape[1]))
-        for what, want in (("single-device K2", single), ("plain", plain)):
-            check(torch.equal(got[0].to(main), want[0])
-                  and torch.equal(got[1].to(main), want[1]),
-                  f"the merged top-k of a works slice differs from {what} on the whole script")
-        res["merged"].append(dict(rows=q_l.shape[0], shards=len(shards), ns=ns))
+        rows_l = next(q for q in q_slices if q is not None).shape[0]
+        for i, q_l in enumerate(q_slices):
+            if q_l is None:   # a row of other ranks' cells: they hold it
+                continue
+            q_m = q_l.to(main)
+            with torch.cuda.device(main):
+                single = orig["topk"](q_m, dix.s_emb, ns, k, min_keep=min_keep)
+                plain = topk_dot_plain(q_m, dix.s_emb, ns, k,
+                                       min_keep_int(min_keep, q_l.shape[1]))
+            sl = slice(i * rows_l, (i + 1) * rows_l)
+            for what, want in (("single-device K2", single), ("plain", plain)):
+                check(torch.equal(got[0][sl].to(main), want[0])
+                      and torch.equal(got[1][sl].to(main), want[1]),
+                      f"the merged top-k of works slice {i} differs from {what} on the "
+                      f"whole script")
+            res["merged"].append(dict(rows=rows_l, shards=len(s_shards[i]), ns=ns))
         return got
 
     def compact(mask, size):
@@ -2290,18 +2320,23 @@ def sharded_step_vs_plain(engine, works, sw_route="K4"):
                                   launches=moved))
         return got
 
-    S.embed_shingles, S.topk_dot, S._block_topk = embed, topk, block
+    S.embed_shingles, S.topk_dot, S.sharded_topk = embed, topk, sharded
     E.nonzero_compact, S.sw_normalized = compact, sw
     try:
         engine._fused_call(ext_dev, nspans, engine._cand_budget, engine._verify_budget)
         torch.cuda.synchronize()
     finally:
-        S.embed_shingles, S.topk_dot, S._block_topk = orig["embed"], orig["topk"], orig["block"]
+        S.embed_shingles, S.topk_dot, S.sharded_topk = (orig["embed"], orig["topk"],
+                                                        orig["sharded"])
         E.nonzero_compact, S.sw_normalized = orig["compact"], orig["sw"]
-    works_ax, script_ax = (engine.mesh.shape[a] for a in ("works", "script"))
+    # the calls of the cells this process owns (every cell on one process)
+    mesh = engine.mesh
+    rows = sum(mesh.head(i) is not None for i in range(len(mesh.devices)))
     exact = engine._candidates_fn == engine._exact_candidates
-    want = {"K1": works_ax, "K2": works_ax * script_ax, "merged": works_ax,
-            sw_route: works_ax}
+    want = {"K1": rows, "merged": rows,
+            "K2": sum(mesh.local(i, j) for i, row in enumerate(mesh.devices)
+                      for j in range(len(row))),
+            sw_route: sum(mesh.local(i, 0) for i in range(len(mesh.devices)))}
     if not exact:
         want.update(K1=0, K2=0, merged=0)
     got = {k: len(v) for k, v in res.items()}
@@ -2489,6 +2524,198 @@ def sharded_dryrun():
     return {"dryrun_fused": n_fused, "dryrun_hybrid": n_hyb}
 
 
+def free_port() -> int:
+    """A free TCP port on the loopback address."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def multihost_phase(index, cfg, works, exact_rows, oracle, script_text, root: Path,
+                    sample: int = 600, device="cuda"):
+    """Phase 16: --multihost on the card.  A one-rank NCCL world
+    (tcp://127.0.0.1:<free port>, world 1, rank 0) runs the sharded engine
+    on a 2 x 2 grid of the world's cells (four logical shards of cuda:0)
+    through the exchange layer's all_gathers over ``sample`` works: the
+    first batch's step with every K1, K2, merge, K3 and K4 call held to
+    plain, the search counted (rows equal the one-process mesh's and one
+    device's, sample parity 1.0 against the oracle), one step under sync
+    debug mode; the world is left.  Then the CLI twice on the sample
+    written to disk, `search --multihost --num-processes 1 --process-id 0
+    --coordinator 127.0.0.1:<port> --mesh 1x1` and the same search
+    without --multihost: byte-equal CSVs."""
+    import dataclasses
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from fandom_search_tpu_torch.config import MeshConfig
+    from fandom_search_tpu_torch.parallel import mesh as M
+    from fandom_search_tpu_torch.parallel.sharded import ShardedSearchEngine
+
+    t0 = phase("multihost")
+    # the world lives on the loopback interface
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    ids = sorted(works)[:sample]
+    sub = {w: works[w] for w in ids}
+    want = [r for r in _csv_rows(exact_rows) if r[0] in set(ids)]
+    devices, which = mesh_devices(4)
+    mcfg = dataclasses.replace(cfg, mesh=MeshConfig(works=2, script=2))
+    one_proc = ShardedSearchEngine(index, mcfg, mesh=M.make_mesh(mcfg.mesh, devices))
+    (one_rows, _, one_s), _ = counted("sharded", lambda: search(one_proc, sub))
+    del one_proc
+    backend = "nccl" if device == "cuda" else "gloo"
+    n = M.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device=device,
+                               timeout_s=300)
+    try:
+        want_n = torch.cuda.device_count() if device == "cuda" else 1
+        check(dist.get_backend() == backend and n == want_n,
+              f"the one-rank world runs {dist.get_backend()} over {n} devices")
+        mesh = M.make_mesh(mcfg.mesh, devices, ranks=[0] * 4)
+        check(mesh.distributed and mesh.world == 1, "the grid is not the world's")
+        engine = ShardedSearchEngine(index, mcfg, mesh=mesh)
+        held = sharded_step_vs_plain(engine, sub)
+        gathers = []
+        orig = dist.all_gather
+        dist.all_gather = lambda *a, **k: gathers.append(a[1].numel()) or orig(*a, **k)
+        try:
+            (rows, stats, seconds), launches = counted("multihost", lambda: search(engine, sub))
+        finally:
+            dist.all_gather = orig
+        check(gathers, "the multihost search made no all_gather")
+        check(_csv_rows(rows) == _csv_rows(one_rows) == want,
+              f"multihost rows ({len(rows)}) differ from the one-process mesh's "
+              f"({len(one_rows)}) or one device's ({len(want)})")
+        parity = sample_parity(rows, oracle, "multihost")
+        no_host_sync(engine, sub, "multihost")
+        del engine
+    finally:
+        M.shutdown_multihost()
+    check(not dist.is_initialized(), "the one-rank world was not left")
+    wdir = root / "mh_works"
+    wdir.mkdir()
+    for w in ids:
+        (wdir / f"{w}.txt").write_text(works[w], encoding="utf-8")
+    script = root / "mh_script.txt"
+    script.write_text(script_text, encoding="utf-8")
+    base = ["search", str(wdir), str(script), "--mesh", "1x1", "--device", device]
+    t1 = time.perf_counter()
+    cli_json([*base, "-o", str(root / "mh.csv"), "--multihost", "--num-processes", "1",
+              "--process-id", "0", "--coordinator", f"127.0.0.1:{free_port()}"])
+    cli_mh_s = time.perf_counter() - t1
+    check(not dist.is_initialized(), "the CLI left its world up")
+    cli_json([*base, "-o", str(root / "one.csv")])
+    csv_mh, csv_one = (root / "mh.csv").read_bytes(), (root / "one.csv").read_bytes()
+    check(csv_mh == csv_one and csv_mh.count(b"\n") > 1,
+          "search --multihost wrote another CSV than the same search without it")
+    print(json.dumps({"multihost": {
+        "world": 1, "backend": backend, "mesh": "2x2", "devices": which, "works": len(sub),
+        "e2e_seconds": seconds, "one_process_e2e_seconds": one_s,
+        "stage_seconds": stats.extra, "batches": stats.num_batches, "rows": len(rows),
+        "all_gathers": len(gathers), "all_gather_bytes": sum(gathers), "parity": parity,
+        "launches": launches, "held_to_plain": held, "cli_multihost_seconds": cli_mh_s,
+        "cli_rows": csv_mh.count(b"\n") - 1, "card": CARD,
+    }}), flush=True)
+    done("multihost", t0, f"one-rank {backend} world, mesh 2x2 on {which}: {len(gathers)} "
+                          f"all_gathers, rows equal the one-process mesh's and one "
+                          f"device's ({len(rows)}), parity {parity}; CLI --multihost CSV "
+                          f"equal; {CARD}")
+    return launches
+
+
+HOST_PAGE = """<html><body><dl class="work meta group">
+<dd class="fandom tags"><a class="tag">Smoke Fandom</a></dd>
+<dd class="character tags"><a class="tag">Alice</a><a class="tag">Bob</a></dd>
+<dd class="kudos">{kudos}</dd></dl>
+<div id="workskin"><div class="preface group"><h2 class="title heading">{title}</h2>
+<h3 class="byline heading"><a href="/users/a">a</a></h3></div>
+<div id="chapters"><h3 class="landmark heading">Chapter Text</h3>
+<div class="userstuff"><p>{text}</p></div></div></div></body></html>"""
+
+
+def host_verbs(root: Path, script_text: str, works, planted, sample: int = 20):
+    """Phase 17: the host verbs through the CLI, touching no device.
+    `format` on the world's script always (one row a script line);
+    `clean` and `getmeta` on three AO3-shaped pages (one broken) where bs4
+    is installed; `search --reference` on ``sample`` works where sklearn
+    and Levenshtein are: its rows equal ReferenceSearch's called
+    directly, and its planted quotes found.  Prints which ran and which
+    were absent; a verb that runs and fails fails the script."""
+    import csv
+    import importlib.util
+
+    from fandom_search_tpu_torch import cli
+    from fandom_search_tpu_torch.data.script_parser import parse_script
+
+    t0 = phase("host_verbs")
+    have = {m: importlib.util.find_spec(m) is not None for m in ("bs4", "sklearn",
+                                                                 "Levenshtein")}
+    ran, absent = ["format"], [m for m, ok in have.items() if not ok]
+    script = root / "hv_script.txt"
+    script.write_text(script_text, encoding="utf-8")
+    check(cli.main(["format", str(script), "-o", str(root / "lines.csv")]) == 0,
+          "format failed")
+    with open(root / "lines.csv", newline="", encoding="utf-8") as f:
+        got = list(csv.reader(f))
+    lines = parse_script(script_text)
+    check(got[0] == ["line_no", "speaker", "text"] and len(got) == len(lines) + 1
+          and got[1] == [str(lines[0].line_no), lines[0].speaker, lines[0].text],
+          f"format wrote {len(got) - 1} rows for {len(lines)} script lines")
+    out = {"format_rows": len(got) - 1}
+    if have["bs4"]:
+        raw = root / "raw"
+        raw.mkdir()
+        ids = sorted(works)[:2]
+        for k, w in enumerate(ids):
+            (raw / f"{w}.html").write_text(HOST_PAGE.format(
+                kudos=k + 1, title=w, text=works[w][:400]), encoding="utf-8")
+        (raw / "broken.html").write_text("<html><h1>Error 500</h1></html>", encoding="utf-8")
+        check(cli.main(["clean", str(raw), "-o", str(root / "clean")]) == 0, "clean failed")
+        kept = sorted(p.stem for p in (root / "clean").glob("*.txt"))
+        check(kept == ids, f"clean kept {kept}, not {ids}")
+        check(cli.main(["getmeta", str(raw), "-o", str(root / "meta.csv")]) == 0,
+              "getmeta failed")
+        with open(root / "meta.csv", newline="", encoding="utf-8") as f:
+            meta = list(csv.DictReader(f))
+        check([m["work_id"] for m in meta] == ids
+              and all(m["characters"] == "Alice; Bob" for m in meta),
+              f"getmeta wrote {meta}")
+        ran += ["clean", "getmeta"]
+        out.update(clean_kept=len(kept), meta_rows=len(meta))
+    if have["sklearn"] and have["Levenshtein"]:
+        from fandom_search_tpu_torch import PipelineConfig
+        from fandom_search_tpu_torch.search.reference_pipeline import ReferenceSearch
+
+        ids = sorted(works)[:sample]
+        wdir = root / "ref_works"
+        wdir.mkdir()
+        for w in ids:
+            (wdir / f"{w}.txt").write_text(works[w], encoding="utf-8")
+        t1 = time.perf_counter()
+        cli_json(["search", str(wdir), str(script), "-o", str(root / "ref.csv"),
+                  "--reference"])
+        ref_s = time.perf_counter() - t1
+        direct, _ = ReferenceSearch(lines, PipelineConfig()).search_works(
+            {w: works[w] for w in ids})
+        with open(root / "ref.csv", newline="", encoding="utf-8") as f:
+            rows = list(csv.reader(f))[1:]
+        check(rows and len(rows) == len(direct)
+              and [r[0] for r in rows] == [d.work_id for d in direct],
+              f"search --reference wrote {len(rows)} rows, ReferenceSearch {len(direct)}")
+        found = {(d.work_id, d.line_no) for d in direct}
+        missed = [p for p in planted if p.work_id in set(ids)
+                  and (p.work_id, p.line_no) not in found]
+        check(not missed, f"search --reference missed planted quotes {missed[:3]}")
+        ran.append("search --reference")
+        out.update(reference_rows=len(rows), reference_seconds=ref_s)
+    print(json.dumps({"host_verbs": dict(ran=ran, absent=absent, **out)}), flush=True)
+    done("host_verbs", t0, f"ran {', '.join(ran)}; absent packages: "
+                           f"{', '.join(absent) or 'none'}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--works", type=int, default=10_000)
@@ -2556,6 +2783,9 @@ def main(argv=None) -> int:
     launches.update(sharded_end_to_end(index, cfg, works, planted, exact_rows, oracle,
                                        exact_s))
     launches.update(sharded_dryrun())
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["multihost"] = multihost_phase(index, cfg, works, exact_rows, oracle,
+                                                script_text, Path(tmp))
     launches["lsh"] = lsh_end_to_end(index, cfg, works, planted, exact_rows)
     launches["lsh_f32"] = lsh_f32_path(index, cfg, works, planted)
     launches["bucketed"] = bucketed_end_to_end(index, cfg, works, planted, exact_rows)
@@ -2569,6 +2799,8 @@ def main(argv=None) -> int:
         launches["bucketed_cli"] = bucketed_cli(Path(tmp), wdir)
     for name, n in wide_configs(index, cfg, works).items():
         launches[f"wide_{name}"] = n
+    with tempfile.TemporaryDirectory() as tmp:
+        host_verbs(Path(tmp), script_text, works, planted)
 
     table = []
     for key, name, _, _, _, src, rep, path in KERNELS:

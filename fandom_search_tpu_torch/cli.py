@@ -1,17 +1,27 @@
-"""The port's CLI; counterpart of fandom_search_tpu/cli.py (index, search, serve, matrix).
+"""The port's CLI; counterpart of fandom_search_tpu/cli.py (every verb but bench).
 
+    python -m fandom_search_tpu_torch scrape TAG -o raw/ [--start-page N] \\
+        [--end-page N] [--delay SECONDS]
+    python -m fandom_search_tpu_torch clean raw/ -o works/
+    python -m fandom_search_tpu_torch getmeta raw/ -o meta.csv
+    python -m fandom_search_tpu_torch format SCRIPT -o lines.csv
     python -m fandom_search_tpu_torch index SCRIPT [SCRIPT ...] -o idx/ [--lsh] \\
         [--bucketed [--bucketed-pairs triangles|all]]
     python -m fandom_search_tpu_torch search WORKS_DIR (SCRIPT ... | --index idx/) \\
         -o matches.csv [--parquet] [--resume-dir DIR] [--profile DIR] \\
         [--lsh | --bucketed [--bucketed-pairs triangles|all]] \\
         [--sw-variant VARIANT] [--stream-compress] [--shards N | --mesh WxS] \\
-        [--selfcheck N] [--oracle] [search flags]
+        [--multihost [--coordinator HOST:PORT --num-processes N --process-id R]] \\
+        [--selfcheck N] [--oracle | --reference] [search flags]
     python -m fandom_search_tpu_torch serve (SCRIPT ... | --index idx/) \\
         [--host 127.0.0.1] [--port 8765] [--no-warm] [search flags]
     python -m fandom_search_tpu_torch matrix matches.csv -o matrix.csv \\
         [--script SCRIPT ...] [--html page.html] [--title TITLE]
 
+``scrape``, ``clean``, ``getmeta`` and ``format`` are host code
+(``scrape/``, ``data/script_parser.py``), as is ``search --reference``
+(the sklearn BallTree + Levenshtein pipeline,
+``search/reference_pipeline.py``), which touches no device.
 ``index`` writes the script index once (``search/persist.py``; ``--lsh``
 adds the prefilter's codes, ``--bucketed`` the bucketed tables);
 ``search --index`` and ``serve --index`` load it, and search flags given
@@ -26,7 +36,11 @@ K5, wide, exitw and slide run K4 (the same scores).
 plus patches, decoded on the device (``search/vocab_stream.py``).
 ``--shards N`` / ``--mesh WxS`` run the search on a works x script grid
 of CUDA devices (``parallel/sharded.py``; with ``--device cpu``, the CPU
-named W * S times).
+named W * S times).  ``--multihost`` first joins a world of processes
+over ``torch.distributed`` (NCCL on cuda, gloo on cpu;
+``parallel/mesh.py``): the grid then spans every rank's devices, every
+rank runs the same command on the same inputs, and every rank writes the
+same rows to its own ``-o``.  ``serve`` refuses ``--multihost``.
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the search.
 ``--device`` defaults to ``cuda`` and fails when CUDA is missing;
 ``--device cpu`` is the explicit way to run the kernels' plain PyTorch
@@ -38,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import dataclasses
 import json
 import logging
@@ -104,6 +119,21 @@ def _add_search_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--oracle", action="store_true",
                    help="run the NumPy reference pipeline instead of the "
                         "engine")
+    p.add_argument("--reference", action="store_true",
+                   help="run the reference-style CPU pipeline "
+                        "(sklearn BallTree + Levenshtein ratio)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a multi-process world (torch.distributed: "
+                        "NCCL on cuda, gloo on cpu) before building the "
+                        "mesh; without --coordinator the rendezvous comes "
+                        "from the standard env vars (MASTER_ADDR, "
+                        "MASTER_PORT, WORLD_SIZE, RANK)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-host coordinator address (with --multihost)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-host process count (with --multihost)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (with --multihost)")
     p.add_argument("--selfcheck", type=int, default=0, metavar="N",
                    help="re-run N sample works through the NumPy oracle "
                         "and report row agreement in the manifest")
@@ -121,6 +151,24 @@ def _device(args):
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         raise SystemExit(2) from e
+
+
+def _maybe_multihost(args) -> None:
+    """Join the multi-process world if asked (index, search): before the
+    first device use, since a CUDA rank's current device is set there.
+    After it the default mesh is the world's global device list
+    (parallel/mesh.py); main() leaves the world at exit."""
+    if not getattr(args, "multihost", False):
+        return
+    from fandom_search_tpu_torch.parallel.mesh import initialize_multihost
+
+    try:
+        n = initialize_multihost(args.coordinator, args.num_processes,
+                                 args.process_id, device=args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        raise SystemExit(2) from e
+    print(f"multihost: joined cluster, {n} global devices", file=sys.stderr)
 
 
 def _mesh_from_args(args):
@@ -273,10 +321,58 @@ def _load_or_build(args):
     return cfg, lines, index
 
 
+def cmd_scrape(args) -> int:
+    from fandom_search_tpu_torch.scrape.ao3 import ScrapeConfig, scrape_tag
+
+    cfg = ScrapeConfig(
+        tag=args.tag,
+        out_dir=Path(args.out),
+        start_page=args.start_page,
+        end_page=args.end_page,
+        delay_seconds=args.delay,
+    )
+    n = 0
+    for path in scrape_tag(cfg):
+        n += 1
+        print(path)
+    print(f"downloaded {n} works", file=sys.stderr)
+    return 0
+
+
+def cmd_clean(args) -> int:
+    from fandom_search_tpu_torch.scrape.clean import clean_corpus
+
+    kept = clean_corpus(Path(args.src), Path(args.out))
+    print(f"kept {len(kept)} works", file=sys.stderr)
+    return 0
+
+
+def cmd_getmeta(args) -> int:
+    from fandom_search_tpu_torch.scrape.clean import write_metadata_csv
+
+    n = write_metadata_csv(Path(args.src), Path(args.out))
+    print(f"wrote metadata for {n} works", file=sys.stderr)
+    return 0
+
+
+def cmd_format(args) -> int:
+    from fandom_search_tpu_torch.data.script_parser import parse_script
+
+    lines = parse_script(Path(args.script).read_text(encoding="utf-8"))
+    with open(args.out, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(["line_no", "speaker", "text"])
+        for ln in lines:
+            w.writerow([ln.line_no, ln.speaker, ln.text])
+    print(f"parsed {len(lines)} script lines", file=sys.stderr)
+    return 0
+
+
 def cmd_index(args) -> int:
     """Build and persist the script index (decoupled from query)."""
     from fandom_search_tpu_torch.search.persist import save_index
 
+    _maybe_multihost(args)
     cfg = _pipeline_config(args)
     lines, index = _build_index_from_scripts(args.script, cfg)
     save_index(index, cfg, Path(args.out))
@@ -342,8 +438,13 @@ def _build_engine(args, cfg, index, device):
     return eng
 
 
-def _run_search(args, cfg, index, works, device):
+def _run_search(args, cfg, lines, index, works, device):
     """One search run; returns (rows, stats_dict)."""
+    if args.reference:
+        from fandom_search_tpu_torch.search.reference_pipeline import ReferenceSearch
+
+        rows, stats = ReferenceSearch(lines, cfg).search_works(works)
+        return rows, dataclasses.asdict(stats)
     if args.oracle:
         from fandom_search_tpu_torch.search.oracle import search_works_oracle
 
@@ -366,7 +467,9 @@ def cmd_search(args) -> int:
         write_matches_csv, write_matches_parquet,
     )
 
-    device = None if args.oracle else _device(args)
+    _maybe_multihost(args)
+    # the oracle and the reference pipeline run on the host
+    device = None if (args.oracle or args.reference) else _device(args)
     t0 = time.perf_counter()
     cfg, lines, index = _load_or_build(args)
     t_index = time.perf_counter() - t0
@@ -380,7 +483,7 @@ def cmd_search(args) -> int:
         profile_ctx = device_trace(args.profile, device or "cpu")
     t0 = time.perf_counter()
     with profile_ctx:
-        rows, stats_d = _run_search(args, cfg, index, works, device)
+        rows, stats_d = _run_search(args, cfg, lines, index, works, device)
     t_search = time.perf_counter() - t0
 
     out = Path(args.out)
@@ -405,7 +508,9 @@ def cmd_search(args) -> int:
     rate_seconds = stats_d.get("seconds") if stats_d.get("resumable") else t_search
     if qs and rate_seconds:
         manifest["shingle_pairs_per_sec"] = round(qs * index.num_shingles / rate_seconds)
-    if args.selfcheck and not args.oracle:
+    # (--reference verifies with its own method: its rows are not the
+    # oracle's by design)
+    if args.selfcheck and not (args.oracle or args.reference):
         from fandom_search_tpu_torch.search.oracle import search_works_oracle
 
         sample_ids = sorted(works)[: args.selfcheck]
@@ -429,8 +534,16 @@ def cmd_search(args) -> int:
 def cmd_serve(args) -> int:
     """Persistent search service (search/server.py): load or build the
     index once, keep the engine warm, answer HTTP/JSON queries."""
-    if args.oracle:
-        print("error: serve runs the engine (no --oracle)", file=sys.stderr)
+    if args.oracle or args.reference:
+        print("error: serve runs the engine (no --oracle/--reference)", file=sys.stderr)
+        return 2
+    if args.multihost:
+        # The JAX package's serve --multihost has every rank bind the same
+        # port: the second fails ("Address already in use"), and a /search
+        # on the first waits forever in a collective no other rank enters.
+        print("error: serve does not run --multihost: every rank would bind "
+              "the same port, and a request to one rank would wait in a "
+              "collective that no other rank enters", file=sys.stderr)
         return 2
     from fandom_search_tpu_torch.search.server import SearchService, make_server
 
@@ -477,11 +590,34 @@ def cmd_matrix(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="fandom_search_tpu_torch",
-        description="Quote search, PyTorch/CUDA port (index, search, serve, "
-                    "matrix).",
+        description="Quote search, PyTorch/CUDA port (scrape, clean, getmeta, "
+                    "format, index, search, serve, matrix).",
     )
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    sp = sub.add_parser("scrape", help="download an AO3 tag's works")
+    sp.add_argument("tag")
+    sp.add_argument("-o", "--out", required=True)
+    sp.add_argument("--start-page", type=int, default=1)
+    sp.add_argument("--end-page", type=int, default=None)
+    sp.add_argument("--delay", type=float, default=5.0)
+    sp.set_defaults(fn=cmd_scrape)
+
+    cp = sub.add_parser("clean", help="extract story text from scraped HTML")
+    cp.add_argument("src")
+    cp.add_argument("-o", "--out", required=True)
+    cp.set_defaults(fn=cmd_clean)
+
+    mp = sub.add_parser("getmeta", help="extract work metadata CSV")
+    mp.add_argument("src")
+    mp.add_argument("-o", "--out", required=True)
+    mp.set_defaults(fn=cmd_getmeta)
+
+    fp = sub.add_parser("format", help="parse a script into line records")
+    fp.add_argument("script")
+    fp.add_argument("-o", "--out", required=True)
+    fp.set_defaults(fn=cmd_format)
 
     ip = sub.add_parser("index", help="build + persist the script index")
     ip.add_argument("script", nargs="+",
@@ -545,7 +681,13 @@ def main(argv=None) -> int:
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(levelname)s %(name)s: %(message)s",
     )
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    finally:
+        if getattr(args, "multihost", False):
+            from fandom_search_tpu_torch.parallel.mesh import shutdown_multihost
+
+            shutdown_multihost()
 
 
 if __name__ == "__main__":

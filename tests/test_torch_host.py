@@ -281,8 +281,9 @@ def test_port_file_imports_nothing_of_jax(rel):
 def test_package_imports_without_jax():
     """With jax and the JAX package unimportable, the port and its
     engine, ops (LSH and bucketed included), the stream encoder, the
-    mesh, the sharded engine and its bucketed prefilter, persistence,
-    server, runner, report, heatmap, profiler, CLI and corpus generator
+    mesh and its exchange layer, the sharded engine and its bucketed
+    prefilter, persistence, server, runner, report, heatmap, profiler,
+    scraper and cleaner, reference pipeline, CLI and corpus generator
     load, and no module of fandom_search_tpu is loaded."""
     code = (
         "import sys\n"
@@ -305,9 +306,12 @@ def test_package_imports_without_jax():
         "import fandom_search_tpu_torch.ops.bucketed\n"
         "import fandom_search_tpu_torch.search.vocab_stream\n"
         "import fandom_search_tpu_torch.parallel.mesh\n"
+        "import fandom_search_tpu_torch.parallel.comm\n"
         "import fandom_search_tpu_torch.parallel.sharded\n"
         "import fandom_search_tpu_torch.parallel.sharded_bucketed\n"
         "import fandom_search_tpu_torch.scrape.clean\n"
+        "import fandom_search_tpu_torch.scrape.ao3\n"
+        "import fandom_search_tpu_torch.search.reference_pipeline\n"
         "import fandom_search_tpu_torch.utils.synthetic\n"
         "import fandom_search_tpu_torch.cli\n"
         "from fandom_search_tpu_torch.cli import build_parser\n"
