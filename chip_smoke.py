@@ -170,8 +170,34 @@ and time:
    where sklearn and Levenshtein are (rows equal ReferenceSearch's,
    planted quotes found); prints which ran and which packages were
    absent.
+18. bench: `python -m fandom_search_tpu_torch bench` in a temporary
+   directory, in a process of its own, at the JAX bench's default shapes
+   (fandom_search_tpu/bench.py) without the 100k-work scale stage
+   (BENCH_SCALE_WORKS=0) and with no time budget: every stage from
+   kernel_engine to bucketed_e2e_big must complete.  The last stdout line
+   must be the six-key result line with backend "gpu", degraded false and
+   a positive value; in the details, K2's recall@10 against the NumPy
+   oracle, the e2e sample's row parity and every guaranteed recall must be
+   1.0 and recall_gate_ok true; the bench's own launch counters (its
+   stage_launches, counted from 0 in its process) must show K1, K2, K3,
+   K4 and K6 launched and K5 and K7 not.  Prints the result line, each
+   stage's seconds and the bench's rates.
+19. bench shapes: the bench's kernels held to their plain versions at
+   the bench's own shapes, on the data its helpers make
+   (fandom_search_tpu_torch/bench.py: kernel_data, sw_data,
+   bucketed_streams, skew_streams at its sizes), every slot equal and
+   outside its counted run: K1 on 2^17 + 5 and 2^22 + 5 tokens; K2 gated
+   and exact at 2^17 x 8,192 and gated at 2^17 x 2^22 (the bucketed_huge
+   and bucketed_english_huge references) on K2_HELD_ROWS rows; K6
+   ungated and gated at 2^17 x 8,192, and the bench's LSH recall@10
+   recomputed from the plain version's candidates; K4 on the sw stage's
+   8,192 pairs; the bucketed_huge flat stage and the
+   bucketed_english_huge hybrid stage (its at-risk share equal to the
+   bench's) with every K1, K2 and K3 call held by stage_vs_plain.  Each
+   entry lands in the kernel line under "bench_shapes".  The e2e stages
+   run phase 2's engine shapes; bucketed_e2e_big is phase 11's world.
 Phases 13-16 run right after phase 4, on its rows and oracle sample;
-phase 17 runs last.
+phases 17, 18 and 19 run last.
 
 It prints the kernel table as one JSON line, then, as its last line,
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -183,6 +209,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -192,26 +219,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PKG = "fandom_search_tpu_torch"
 KERNELS = (
-    # key, name, ops module, wrapper, its launch counter, source, TPU
-    # kernel it replaces, the path whose launches the table reports
-    ("embed_shingles", "K1 embed", "embed", "embed_shingles", "launches",
-     "csrc/embed.cu", "fandom_search_tpu/ops/embed.py:41", "exact"),
-    ("topk_dot", "K2 distance_topk", "distance_topk", "topk_dot", "launches",
-     "csrc/distance_topk.cu", "fandom_search_tpu/ops/distance_topk.py:104", "exact"),
-    ("scan1d_i32", "K3 scan", "scan", "scan1d_i32", "launches",
-     "csrc/scan.cu", "fandom_search_tpu/ops/scan.py:61", "exact"),
-    ("sw_wide", "K4 smith_waterman", "smith_waterman", "sw_wide", "launches",
-     "csrc/smith_waterman.cu", "fandom_search_tpu/ops/smith_waterman.py:452", "exact"),
-    ("sw_lane_i16", "K5 smith_waterman_lane, packed int16 route (DPX)", "smith_waterman",
-     "sw_lane", "launches_i16", "csrc/smith_waterman_lane.cu",
-     "fandom_search_tpu/ops/smith_waterman.py:233", "lsh"),
-    ("sw_lane_f32", "K5 smith_waterman_lane, f32 route", "smith_waterman", "sw_lane",
-     "launches_f32", "csrc/smith_waterman_lane.cu",
+    # key (its launch counter: the port's bench.COUNTERS), name, source,
+    # TPU kernel it replaces, the path whose launches the table reports
+    ("embed_shingles", "K1 embed", "csrc/embed.cu", "fandom_search_tpu/ops/embed.py:41",
+     "exact"),
+    ("topk_dot", "K2 distance_topk", "csrc/distance_topk.cu",
+     "fandom_search_tpu/ops/distance_topk.py:104", "exact"),
+    ("scan1d_i32", "K3 scan", "csrc/scan.cu", "fandom_search_tpu/ops/scan.py:61", "exact"),
+    ("sw_wide", "K4 smith_waterman", "csrc/smith_waterman.cu",
+     "fandom_search_tpu/ops/smith_waterman.py:452", "exact"),
+    ("sw_lane_i16", "K5 smith_waterman_lane, packed int16 route (DPX)",
+     "csrc/smith_waterman_lane.cu", "fandom_search_tpu/ops/smith_waterman.py:233", "lsh"),
+    ("sw_lane_f32", "K5 smith_waterman_lane, f32 route", "csrc/smith_waterman_lane.cu",
      "fandom_search_tpu/ops/smith_waterman.py:233", "lsh_f32"),
-    ("hamming_topk", "K6 hamming_topk", "lsh", "hamming_topk", "launches",
-     "csrc/hamming_topk.cu", "fandom_search_tpu/ops/lsh.py:121", "lsh"),
-    ("topk_dot_rows", "K7 distance_topk_rows", "distance_topk", "topk_dot",
-     "launches_rows", "csrc/distance_topk_rows.cu",
+    ("hamming_topk", "K6 hamming_topk", "csrc/hamming_topk.cu",
+     "fandom_search_tpu/ops/lsh.py:121", "lsh"),
+    ("topk_dot_rows", "K7 distance_topk_rows", "csrc/distance_topk_rows.cu",
      "fandom_search_tpu/ops/distance_topk.py:418", "rows_ab"),
 )
 # which kernels each path must launch; the others must stay at 0
@@ -244,11 +267,19 @@ PATHS = {
     "dryrun_hybrid": EXACT,
     # the sharded engine in a one-rank NCCL world (--multihost)
     "multihost": EXACT,
+    # the port's bench (`bench`): K1-K4 and K6, at sw_variant "wide"
+    "bench": EXACT + ("hamming_topk",),
 }
-# NVIDIA H100 SXM peaks (data sheet, dense): HBM bytes/s and int8
-# tensor-core operations/s
+# the bench phase's stages: the JAX bench's defaults without `scale`
+BENCH_STAGES = ("kernel_engine", "kernel_exact", "cpu_oracle", "sw", "sharded", "lsh",
+                "bucketed_small", "e2e", "bucketed_e2e_parity", "bucketed_big",
+                "bucketed_english", "bucketed_huge", "bucketed_english_huge",
+                "bucketed_e2e_big")
+BENCH_LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "backend", "degraded"}
+# NVIDIA H100 SXM peaks (data sheet, dense): HBM bytes/s, and int8
+# tensor-core operations/s (the port's bench.INT8_PEAK_OPS_S; set in main)
 HBM_BYTES_S = 3.35e12
-INT8_OPS_S = 1.979e15
+INT8_OPS_S = 0.0
 # The CUDA cores' rates, in results a clock an SM, from the table
 # "Throughput of Native Arithmetic Instructions" of NVIDIA's CUDA C++
 # Programming Guide, compute capability 9.0: 32-bit integer add, 32-bit
@@ -351,21 +382,17 @@ def sw_bound(a, b, len_a, len_b, c):
     return bound(int(na.sum() + nb.sum()) * 4 + a.shape[0] * 12, per_cell * cells, INT32_OPS_S)
 
 
-def counters():
-    """{kernel key: (wrapper, name of its launch counter)}."""
-    import importlib
-
-    return {key: (getattr(importlib.import_module(f"{PKG}.ops.{mod}"), fn), attr)
-            for key, _, mod, fn, attr, _, _, _ in KERNELS}
-
-
 def zero_counters():
-    for w, attr in counters().values():
+    from fandom_search_tpu_torch import bench
+
+    for w, attr in bench.counters().values():
         setattr(w, attr, 0)
 
 
 def read_counters():
-    return {key: getattr(w, attr) for key, (w, attr) in counters().items()}
+    from fandom_search_tpu_torch import bench
+
+    return bench.read_counters()
 
 
 def check_launches(path, launches):
@@ -1760,24 +1787,9 @@ def bucketed_end_to_end(index, cfg, works, planted, exact_rows, device="cuda"):
 def big_world(cfg, shingles: int = 1 << 20, num_works: int = 480, seed: int = 23):
     """fandom_search_tpu/bench.py's stage_bucketed_e2e_big world: English-
     like skew over a 30,000-word vocabulary."""
-    import numpy as np
+    from fandom_search_tpu_torch.bench import flagship_world
 
-    from fandom_search_tpu_torch.data.script_parser import parse_script
-    from fandom_search_tpu_torch.search.index import build_script_index
-    from fandom_search_tpu_torch.utils.synthetic import (
-        make_corpus_with_quotes, make_script, make_vocab,
-    )
-
-    rng = np.random.default_rng(seed)
-    vocab = make_vocab(rng, 30000)
-    script = make_script(rng, vocab, num_lines=max(1, -(-shingles // 12)),
-                         words_per_line=(8, 17), zipf_a=1.01)
-    lines = parse_script(script)
-    index = build_script_index(lines, cfg.shingle, cfg.search)
-    works, planted = make_corpus_with_quotes(
-        rng, [ln.text for ln in lines], num_works=num_works, words_per_work=2000,
-        quotes_per_work=3, num_edits=1, vocab=vocab, zipf_a=1.01,
-    )
+    _, index, works, planted = flagship_world(cfg, shingles, num_works, seed)
     return index, works, planted
 
 
@@ -2716,6 +2728,236 @@ def host_verbs(root: Path, script_text: str, works, planted, sample: int = 20):
                            f"{', '.join(absent) or 'none'}")
 
 
+def bench_phase(root: Path):
+    """Phase 18: the port's bench through its CLI verb, in a process of its
+    own; returns its launches by kernel (its stage_launches summed) and
+    its details."""
+    t0 = phase("bench")
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "BENCH_SCALE_WORKS": "0",
+           "BENCH_TIME_BUDGET_S": "0"}
+    r = subprocess.run([sys.executable, "-m", PKG, "bench"], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=900)
+    check(r.returncode == 0, f"bench exited {r.returncode}:\n{r.stderr[-4000:]}")
+    out = r.stdout.strip().splitlines()
+    check(len(out) == 1, f"bench printed {len(out)} stdout lines, not one")
+    line = json.loads(out[0])
+    check(set(line) == BENCH_LINE_KEYS, f"result line keys {sorted(line)}")
+    check(line["backend"] == "gpu" and line["degraded"] is False and line["value"] > 0,
+          f"result line {line}")
+    d = json.loads((root / "torch_bench_details.json").read_text())
+    check(d["capture_complete"] and d["stages_done"] == list(BENCH_STAGES)
+          and not d.get("stages_skipped_for_time"),
+          f"bench stages {d['stages_done']}, skipped {d.get('stages_skipped_for_time')}")
+    check(d["kernel_recall_at_10_vs_oracle"] == 1.0,
+          f"K2 recall@10 vs the oracle {d['kernel_recall_at_10_vs_oracle']}")
+    check(d["e2e_sample_match_parity"] == 1.0,
+          f"e2e sample parity {d['e2e_sample_match_parity']}")
+    check(d["recall_gate_ok"] is True, "bucketed e2e rows differ from the exact rows")
+    guaranteed = {k: v for k, v in d.items() if k.endswith("_guaranteed_recall")}
+    check(len(guaranteed) == 5 and all(v == 1.0 for v in guaranteed.values()),
+          f"guaranteed recalls {guaranteed}")
+    launches = {key: sum(per[key] for per in d["stage_launches"].values())
+                for key in read_counters()}
+    check_launches("bench", launches)
+    rates = {k: v for k, v in d.items() if k.endswith(("per_sec", "per_sec_equiv"))
+             or k in ("e2e_seconds_runs", "e2e_stage_seconds", "kernel_engine_int8_peak_share",
+                      "build_seconds", "card")}
+    print(json.dumps({"bench": dict(line=line, stage_seconds=d["stage_seconds"], **rates)}),
+          flush=True)
+    done("bench", t0, f"{line['value']:.4g} pairs/s; e2e {min(d['e2e_seconds_runs']):.3f}s "
+                      f"of {d['e2e_works']} works; stages {sum(d['stage_seconds'].values()):.1f}s")
+    return launches, d
+
+
+def bench_shapes(details, device="cuda"):
+    """Phase 19: the bench's kernels against their plain versions at the
+    bench's own shapes, on its own data (bench.py's data helpers at its
+    sizes), every slot equal, outside its counted run: K1 on the kernel
+    stages' 2^17 + 5 tokens and on bucketed_huge's 2^22 + 5 script tokens;
+    K2 gated and exact at 2^17 x 8,192, and gated at 2^17 x 2^22 (the
+    flat and the English-skew references) on K2_HELD_ROWS rows; K6
+    ungated and gated at 2^17 x 8,192, and the bench's LSH recall@10
+    recomputed from the plain version's candidates; K4 on the sw stage's
+    8,192 pairs; bucketed_huge's flat stage and bucketed_english_huge's
+    hybrid stage (settled budgets) under ``stage_vs_plain``, which holds
+    each K1 and K3 call whole and the hybrid's K2 on its at-risk rows.
+    The e2e stages run the engine shapes of phase 2 and the flagship
+    world is phase 11's.  Returns {kernel key: {shape: dict(ms, plain_ms,
+    bound...)}}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fandom_search_tpu_torch import PipelineConfig, bench
+    from fandom_search_tpu_torch.data.hashing import derive_sign_mults
+    from fandom_search_tpu_torch.data.shingler import shingle_hashes
+    from fandom_search_tpu_torch.ops import bucketed as B
+    from fandom_search_tpu_torch.ops.distance_topk import (
+        NEG_INF, min_keep_int, topk_dot, topk_dot_plain,
+    )
+    from fandom_search_tpu_torch.ops.embed import embed_shingles, embed_shingles_plain
+    from fandom_search_tpu_torch.ops.lsh import (
+        SENT, LSHIndex, coarse_sim_threshold, encode, hamming_topk, hamming_topk_plain,
+        rerank_exact,
+    )
+    from fandom_search_tpu_torch.ops.smith_waterman import sw_normalized_plain, sw_wide
+    from fandom_search_tpu_torch.search.oracle import topk_scores_np
+
+    t0 = phase("bench shapes")
+    cfg = PipelineConfig()
+    size = bench.sizes()
+    dev = torch.device(device)
+    k, dim, n, thr = cfg.search.k, cfg.shingle.dim, cfg.shingle.n, cfg.search.candidate_threshold
+    out = {key: {} for key in ("embed_shingles", "topk_dot", "sw_wide", "hamming_topk")}
+
+    def k1(name, tok, mults):
+        got = embed_shingles(tok, mults)
+        want = embed_shingles_plain(tok, mults)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K1 differs from plain at the bench's {name}")
+        out["embed_shingles"][name] = dict(
+            tokens=tok.shape[0], max_abs_err=0.0, ms=cuda_ms(lambda: embed_shingles(tok, mults), 5),
+            plain_ms=cuda_ms(lambda: embed_shingles_plain(tok, mults), 1),
+            **bound(tok.numel() * 4 + mults.numel() * 4 + got.numel(), got.numel() * n,
+                    INT32_OPS_S))
+        return got
+
+    def k2(name, q, s, ns, mk, rows=None):
+        """K2 on all of ``q``; every slot of its first ``rows`` rows (all
+        when None) against plain (``plain_ms`` on those rows)."""
+        got = topk_dot(q, s, ns, k, min_keep=mk)
+        qh = q if rows is None else q[:rows]
+        want = topk_dot_plain(qh, s, ns, k, min_keep_int(mk, dim))
+        torch.cuda.synchronize()
+        check(torch.equal(got[0][: qh.shape[0]], want[0])
+              and torch.equal(got[1][: qh.shape[0]], want[1]),
+              f"K2 differs from plain at the bench's {name}")
+        filled = int((want[0] > NEG_INF).sum())
+        check(filled > 0, f"K2 at the bench's {name}: no entry to compare")
+        ops = 2 * q.shape[0] * ns * dim
+        out["topk_dot"][name] = dict(
+            shape=f"NQ={q.shape[0]} NS={ns} k={k} min_keep={mk}", held_rows=qh.shape[0],
+            filled=filled, max_abs_err=0.0,
+            ms=cuda_ms(lambda: topk_dot(q, s, ns, k, min_keep=mk), 3),
+            plain_ms=cuda_ms(lambda: topk_dot_plain(qh, s, ns, k, min_keep_int(mk, dim)), 1),
+            **bound(q.numel() + s.numel() + q.shape[0] * k * 8, ops, INT8_OPS_S))
+
+    # the kernel stages (default_rng(0)): K1, K2 gated and exact, K6
+    q_stream, _, s_emb, plant_idx = bench.kernel_data(cfg, size["nq"], size["ns"])
+    ops = bench.kernel_operands(dev, cfg, q_stream, s_emb, plant_idx)
+    k1(f"kernel_stage_T{ops['tok'].shape[0]}", ops["tok"], ops["mults"])
+    q, s_pad, nsv = ops["q_dev"], ops["s_pad"], ops["ns_valid"]
+    k2("kernel_engine", q, s_pad, nsv, thr)
+    k2("kernel_exact", q, s_pad, nsv, -float("inf"))
+    lsh = LSHIndex.build(s_emb, cfg.lsh, cfg.shingle,
+                         pad_multiple=cfg.search.script_pad_multiple, device=dev)
+    qc = encode(q, lsh.projection)
+    r, bits = cfg.lsh.rerank, cfg.lsh.bits
+    keep = coarse_sim_threshold(thr, n, bits)
+    for mode, mks in (("ungated", SENT), ("gated", keep)):
+        pv, pi = hamming_topk_plain(qc, lsh.codes_t, lsh.ns_valid, r, bits, mks)
+        kv, ki = hamming_topk(qc, lsh.codes_t, lsh.ns_valid, r, bits, min_keep_sim=mks)
+        torch.cuda.synchronize()
+        check(torch.equal(kv, pv) and torch.equal(ki, pi),
+              f"K6 differs from plain at the bench's lsh stage, {mode} (min_keep_sim {mks})")
+        filled = int((pv > NEG_INF).sum())
+        check(filled > 0, f"K6 at the bench's lsh stage, {mode}: no entry to compare")
+        out["hamming_topk"][f"lsh_stage_{mode}"] = dict(
+            shape=f"NQ={qc.shape[0]} NS={lsh.ns_valid} bits={bits} R={r} min_keep_sim={mks}",
+            filled=filled, max_abs_err=0.0,
+            ms=cuda_ms(lambda: hamming_topk(qc, lsh.codes_t, lsh.ns_valid, r, bits,
+                                            min_keep_sim=mks), 3),
+            plain_ms=cuda_ms(lambda: hamming_topk_plain(qc, lsh.codes_t, lsh.ns_valid, r, bits,
+                                                        mks), 1),
+            **bound(qc.numel() * 4 + lsh.codes_t.numel() * 4 + qc.shape[0] * r * 8,
+                    2 * qc.shape[0] * lsh.ns_valid * bits, INT8_OPS_S))
+        if mode == "ungated":
+            # the bench's recall@10, from the plain version's candidates
+            cq = size["cpu_nq"]
+            lv, _ = rerank_exact(q[:cq], s_pad, pi[:cq], pv[:cq] > NEG_INF / 2, k, dim)
+            ovals, _ = topk_scores_np(q[:cq].cpu().numpy(), s_emb, k, dim)
+            recall = bench._recall_by_score(ovals, lv.cpu().numpy(), dim, k)
+            check(recall == details["lsh_recall_at_10_vs_exact"],
+                  f"the bench's LSH recall@10 {details['lsh_recall_at_10_vs_exact']} is not "
+                  f"the plain version's {recall}")
+        del pv, pi, kv, ki
+    del ops, q, s_pad, qc, lsh
+
+    # the sw stage (default_rng(5)): K4
+    a, b = bench.sw_data(cfg, size["sw_b"])
+    ad, bd = (torch.from_numpy(x.view(np.int32)).to(dev) for x in (a, b))
+    la = torch.full((a.shape[0],), a.shape[1], dtype=torch.int32, device=dev)
+    lb = torch.full((a.shape[0],), b.shape[1], dtype=torch.int32, device=dev)
+    xc = cfg.search
+    g = sw_wide(ad, bd, la, lb, xc)
+    w = sw_normalized_plain(ad, bd, la, lb, xc.sw_match, xc.sw_mismatch, xc.sw_gap)
+    torch.cuda.synchronize()
+    check(torch.equal(g, w), "K4 differs from plain at the bench's sw stage")
+    out["sw_wide"]["sw_stage"] = dict(
+        shape=f"B={a.shape[0]} {a.shape[1]}x{b.shape[1]}", max_abs_err=0.0,
+        ms=cuda_ms(lambda: sw_wide(ad, bd, la, lb, xc), 5),
+        plain_ms=cuda_ms(lambda: sw_normalized_plain(ad, bd, la, lb, xc.sw_match,
+                                                     xc.sw_mismatch, xc.sw_gap), 1),
+        **sw_bound(ad, bd, la, lb, xc))
+
+    mults = torch.from_numpy(derive_sign_mults(cfg.shingle.seed, n, dim).view(np.int32)).to(dev)
+    held = {}
+
+    # bucketed_huge (default_rng(7)): K1 on the 2^22 + 5 script tokens, the
+    # flat stage, its K2 reference on K2_HELD_ROWS rows
+    ns_h, nq = size["bucketed_huge"], size["nq"]
+    s_stream, q_stream = bench.bucketed_streams(cfg, ns_h, nq)
+    bidx = B.BucketedIndex.build(shingle_hashes(s_stream, cfg.shingle), cfg.bucketed,
+                                 cfg.shingle, device=dev)
+    sb, nsb = bench._pad_rows(k1(f"bucketed_huge_script_T{s_stream.size}",
+                                 bench._tokens(s_stream, dev), mults), 2048)
+    qs = bench._tokens(q_stream, dev)
+    qb = embed_shingles(qs, mults)
+    held["bucketed_huge"], _ = stage_vs_plain("bench bucketed_huge", lambda: (
+        B.bucketed_candidates_flat(
+            qs, qb, bidx.entries, bidx.offsets, sb, n=n, cap=cfg.bucketed.cap,
+            num_buckets=bidx.num_buckets, salts=bidx.salts, k=k, dim=dim, threshold=thr,
+            max_out=1 << 16)))
+    k2("bucketed_huge_exact", qb, sb, nsb, thr, rows=K2_HELD_ROWS)
+    del bidx, sb, qs, qb
+
+    # bucketed_english_huge (SKEW): the hybrid at its settled budgets, its
+    # K2 reference on K2_HELD_ROWS rows
+    tag = "bucketed_english_huge"
+    spec = bench.SKEW[tag]
+    bcfg = dataclasses.replace(cfg.bucketed, pairs=spec["pairs_mode"])
+    nq_c = min(nq, spec["nq_max"])
+    s_stream, q_stream = bench.skew_streams(cfg, size[tag], nq_c, **spec)
+    bidx = B.BucketedIndex.build(shingle_hashes(s_stream, cfg.shingle), bcfg, cfg.shingle,
+                                 device=dev)
+    sz, nsz = bench._pad_rows(embed_shingles(bench._tokens(s_stream, dev), mults), 2048)
+    qs = bench._tokens(q_stream, dev)
+    qz = embed_shingles(qs, mults)
+
+    def hybrid(max_out, risk_budget):
+        return B.bucketed_hybrid(
+            qs, qz, bidx.entries, bidx.offsets, sz, nsz, n=n, cap=bcfg.cap,
+            num_buckets=bidx.num_buckets, salts=bidx.salts, k=k, dim=dim, threshold=thr,
+            max_out=max_out, risk_budget=risk_budget, pairs_mode=bcfg.pairs)
+
+    budgets = {"max_out": 1 << 16, "risk_budget": 1 << 13}
+    _, risk = bench.hybrid_rerun(hybrid, budgets)
+    check(risk / nq_c == details[f"{tag}_risk_frac"],
+          f"{tag}: at-risk {risk} of {nq_c}, the bench's {details[f'{tag}_risk_frac']}")
+    held[tag], k2_args = stage_vs_plain(f"bench {tag}", lambda: hybrid(
+        budgets["max_out"], budgets["risk_budget"]))
+    check(k2_args is not None, f"{tag}: the hybrid made no K2 call")
+    k2(f"{tag}_exact", qz, sz, nsz, thr, rows=K2_HELD_ROWS)
+    del bidx, sz, qs, qz
+    torch.cuda.empty_cache()
+    print(json.dumps({"bench_shapes": dict(out, stage_calls_held=held)}), flush=True)
+    done("bench shapes", t0, "every slot equal to plain: K1 2^17 + 5 and 2^22 + 5 tokens; "
+                             "K2 2^17 x 8,192 gated and exact, 2^17 x 2^22 twice; K6 ungated "
+                             "and gated; K4; the flat and hybrid stages' K1/K2/K3 calls")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--works", type=int, default=10_000)
@@ -2747,8 +2989,11 @@ def main(argv=None) -> int:
     done("device", t0, f"{kind} x{torch.cuda.device_count()} torch {torch.__version__} "
                        f"cuda {torch.version.cuda}; boost clock {boost} MHz")
 
+    from fandom_search_tpu_torch import bench
     from fandom_search_tpu_torch.ops import _cuda
 
+    global INT8_OPS_S
+    INT8_OPS_S = bench.INT8_PEAK_OPS_S["H100"]
     t0 = phase("build")
     build_s = _cuda.build(force=True)
     _cuda.library()
@@ -2801,9 +3046,16 @@ def main(argv=None) -> int:
         launches[f"wide_{name}"] = n
     with tempfile.TemporaryDirectory() as tmp:
         host_verbs(Path(tmp), script_text, works, planted)
+    # the bench's process needs the card's memory that this one caches
+    del engine, works, planted, exact_rows, oracle
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["bench"], bench_details = bench_phase(Path(tmp))
+    for key, shapes in bench_shapes(bench_details).items():
+        res[key]["bench_shapes"] = shapes
 
     table = []
-    for key, name, _, _, _, src, rep, path in KERNELS:
+    for key, name, src, rep, path in KERNELS:
         by_path = {p: n[key] for p, n in launches.items()}
         table.append(dict(name=name, route="cuda", source=f"{PKG}/{src}",
                           replaces=rep, launches=by_path[path],

@@ -1,4 +1,4 @@
-"""The port's CLI; counterpart of fandom_search_tpu/cli.py (every verb but bench).
+"""The port's CLI; counterpart of fandom_search_tpu/cli.py.
 
     python -m fandom_search_tpu_torch scrape TAG -o raw/ [--start-page N] \\
         [--end-page N] [--delay SECONDS]
@@ -17,6 +17,8 @@
         [--host 127.0.0.1] [--port 8765] [--no-warm] [search flags]
     python -m fandom_search_tpu_torch matrix matches.csv -o matrix.csv \\
         [--script SCRIPT ...] [--html page.html] [--title TITLE]
+    python -m fandom_search_tpu_torch bench [--quick] [--device cuda|cpu]
+    python -m fandom_search_tpu_torch --version
 
 ``scrape``, ``clean``, ``getmeta`` and ``format`` are host code
 (``scrape/``, ``data/script_parser.py``), as is ``search --reference``
@@ -42,6 +44,8 @@ over ``torch.distributed`` (NCCL on cuda, gloo on cpu;
 rank runs the same command on the same inputs, and every rank writes the
 same rows to its own ``-o``.  ``serve`` refuses ``--multihost``.
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the search.
+``bench`` runs the port's benchmark (``bench.py``) in this process: one
+JSON line on stdout, its details in ``torch_bench_details.json``.
 ``--device`` defaults to ``cuda`` and fails when CUDA is missing;
 ``--device cpu`` is the explicit way to run the kernels' plain PyTorch
 versions.  ``search`` prints one JSON manifest line, like the JAX
@@ -587,13 +591,20 @@ def cmd_matrix(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from fandom_search_tpu_torch.bench import main as bench_main
+
+    return bench_main((["--quick"] if args.quick else []) + ["--device", args.device])
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="fandom_search_tpu_torch",
         description="Quote search, PyTorch/CUDA port (scrape, clean, getmeta, "
-                    "format, index, search, serve, matrix).",
+                    "format, index, search, serve, matrix, bench).",
     )
     p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("--version", action="version", version=_version())
     sub = p.add_subparsers(dest="cmd", required=True)
 
     sp = sub.add_parser("scrape", help="download an AO3 tag's works")
@@ -672,7 +683,34 @@ def build_parser() -> argparse.ArgumentParser:
     xp.add_argument("--title", default="Fan engagement",
                     help="heatmap page title")
     xp.set_defaults(fn=cmd_matrix)
+
+    bp = sub.add_parser("bench", help="run the standard benchmark")
+    bp.add_argument("--quick", action="store_true",
+                    help="kernel-only regression check vs bench_expected.json")
+    bp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda (default; fails without CUDA) or cpu, which "
+                         "runs the kernels' plain versions")
+    bp.set_defaults(fn=cmd_bench)
     return p
+
+
+def _version() -> str:
+    """The installed distribution's version, else pyproject.toml's with
+    "(source checkout)", as the JAX package's CLI prints it."""
+    try:
+        from importlib.metadata import version
+
+        return version("fandom-search-tpu")
+    except Exception:  # noqa: BLE001 — uninstalled checkout
+        try:
+            import tomllib
+
+            pyproject = Path(__file__).resolve().parent.parent / "pyproject.toml"
+            with open(pyproject, "rb") as f:
+                v = tomllib.load(f)["project"]["version"]
+            return f"{v} (source checkout)"
+        except Exception:  # noqa: BLE001
+            return "unknown (source checkout)"
 
 
 def main(argv=None) -> int:

@@ -5,6 +5,11 @@ order); each unit's match rows are written atomically to its own CSV,
 and a manifest records completion.  Re-running the same command resumes
 from the missing units only.  The per-unit CSVs concatenate into the
 standard match CSV (identical schema).
+
+Every rank of a ``--multihost`` search runs the same units into the same
+directory, so each writes through temporary names of its own
+(``unit_00000.csv.r1.tmp``): no rank renames a file another rank is
+still writing, or finds its own already moved.
 """
 
 from __future__ import annotations
@@ -33,9 +38,15 @@ _UNIT_STATS = (
 
 class ResumableRunner:
     def __init__(self, engine, out_dir: str | Path, unit_size: int = 256):
+        from fandom_search_tpu_torch.parallel.mesh import multihost_world
+
         self.engine = engine
         self.out_dir = Path(out_dir)
         self.unit_size = unit_size
+        # temporary names carry this process's rank in the joined
+        # multihost world (0 outside one)
+        world = multihost_world()
+        self._tmp_suffix = f".r{world.rank if world is not None else 0}.tmp"
         self.out_dir.mkdir(parents=True, exist_ok=True)
         self.manifest_path = self.out_dir / "manifest.json"
         self.manifest: Dict = {"units": {}, "unit_size": unit_size}
@@ -83,9 +94,9 @@ class ResumableRunner:
             rows, stats = self.engine.search_works(
                 {w: works[w] for w in unit}
             )
-            tmp = self._unit_path(unit_id).with_suffix(".csv.tmp")
+            tmp = self._tmp(self._unit_path(unit_id))
             write_matches_csv(rows, tmp)
-            tmp.rename(self._unit_path(unit_id))  # atomic completion
+            tmp.replace(self._unit_path(unit_id))  # atomic completion
             self.manifest["units"][unit_id] = {
                 "done": True,
                 "ids_hash": ids_hash,
@@ -110,10 +121,13 @@ class ResumableRunner:
             total[key] = round(sum(u.get(key, 0) for u in units.values()), 3)
         return total
 
+    def _tmp(self, path: Path) -> Path:
+        return path.with_name(path.name + self._tmp_suffix)
+
     def _write_manifest(self) -> None:
-        tmp = self.manifest_path.with_suffix(".json.tmp")
+        tmp = self._tmp(self.manifest_path)
         tmp.write_text(json.dumps(self.manifest, indent=1), encoding="utf-8")
-        tmp.rename(self.manifest_path)
+        tmp.replace(self.manifest_path)
 
 
 def _ids_hash(unit: Sequence[str]) -> str:

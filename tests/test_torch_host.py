@@ -283,8 +283,8 @@ def test_package_imports_without_jax():
     engine, ops (LSH and bucketed included), the stream encoder, the
     mesh and its exchange layer, the sharded engine and its bucketed
     prefilter, persistence, server, runner, report, heatmap, profiler,
-    scraper and cleaner, reference pipeline, CLI and corpus generator
-    load, and no module of fandom_search_tpu is loaded."""
+    scraper and cleaner, reference pipeline, bench, CLI and corpus
+    generator load, and no module of fandom_search_tpu is loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -313,6 +313,7 @@ def test_package_imports_without_jax():
         "import fandom_search_tpu_torch.scrape.ao3\n"
         "import fandom_search_tpu_torch.search.reference_pipeline\n"
         "import fandom_search_tpu_torch.utils.synthetic\n"
+        "import fandom_search_tpu_torch.bench\n"
         "import fandom_search_tpu_torch.cli\n"
         "from fandom_search_tpu_torch.cli import build_parser\n"
         "build_parser()\n"
@@ -451,3 +452,24 @@ def test_load_works_dir_matches(tmp_path):
     got, want = load_works_dir(tmp_path), jload(tmp_path)
     assert got == want and set(got) == {"a", "b", "c"}
     assert "Second line" in got["b"] and "a note" not in got["b"]
+
+
+def test_package_data_holds_every_source():
+    """pyproject.toml's package data for the port lists every file the
+    kernel build hashes and compiles (csrc/*.cu and the headers they
+    include) and the tokenizer's source, so an installed wheel can build
+    them."""
+    import fnmatch
+    import tomllib
+
+    from fandom_search_tpu_torch.ops import _cuda
+
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "fandom_search_tpu_torch"]
+    pkg = ROOT / "fandom_search_tpu_torch"
+    files = [f.relative_to(pkg).as_posix() for f in _cuda._sources()]
+    files += [f.relative_to(pkg).as_posix() for f in (pkg / "native").glob("*.cpp")]
+    assert any(f.endswith(".cuh") for f in files)
+    missing = [f for f in files if not any(fnmatch.fnmatch(f, p) for p in patterns)]
+    assert not missing, f"not in package data: {missing}"
