@@ -1,0 +1,66 @@
+"""The system under test, built from a configuration file: the script
+index, the engine and its prefilter.  This module and ``trace.py`` (the traced run's spans) are
+the harness's only imports of the program."""
+
+from __future__ import annotations
+
+import time
+from typing import Dict
+
+from fandom_search_tpu_torch import config as pconfig
+from fandom_search_tpu_torch.data.script_parser import parse_script
+from fandom_search_tpu_torch.search.engine import SearchEngine
+from fandom_search_tpu_torch.search.index import build_script_index
+
+_SECTIONS = {
+    "shingle": pconfig.ShingleConfig, "search": pconfig.SearchConfig,
+    "lsh": pconfig.LSHConfig, "bucketed": pconfig.BucketedConfig,
+}
+
+
+def pipeline_config(pipeline: dict) -> pconfig.PipelineConfig:
+    """The port's PipelineConfig with the configuration's fields set."""
+    unknown = set(pipeline) - set(_SECTIONS)
+    if unknown:
+        raise ValueError(f"unknown pipeline sections {sorted(unknown)}")
+    return pconfig.PipelineConfig(**{
+        name: cls(**pipeline.get(name, {})) for name, cls in _SECTIONS.items()})
+
+
+def load_kernels(device: str) -> float:
+    """Seconds to load (on a checkout's first run: build) the kernels
+    and the native tokenizer."""
+    t0 = time.perf_counter()
+    from fandom_search_tpu_torch.data import fast_tokenizer
+
+    fast_tokenizer.get_lib()
+    if device.startswith("cuda"):
+        from fandom_search_tpu_torch.ops import _cuda
+
+        _cuda.library()
+    return time.perf_counter() - t0
+
+
+def build_engine(script_text: str, config: dict, device: str, phases: Dict[str, float]):
+    """The engine over the index built from the script text, with the
+    configuration's prefilter attached; ``phases`` gets each step's
+    seconds."""
+    cfg = pipeline_config(config.get("pipeline", {}))
+    t0 = time.perf_counter()
+    index = build_script_index(parse_script(script_text), cfg.shingle, cfg.search)
+    phases["index"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = SearchEngine(index, cfg, device=device)
+    phases["engine"] = time.perf_counter() - t0
+    prefilter = config.get("prefilter")
+    t0 = time.perf_counter()
+    if prefilter == "bucketed":
+        from fandom_search_tpu_torch.ops.bucketed import attach_bucketed_prefilter
+
+        attach_bucketed_prefilter(engine, cfg.bucketed)
+    elif prefilter is not None:
+        raise ValueError(f"unknown prefilter {prefilter!r}")
+    if prefilter:
+        phases[f"{prefilter}_tables"] = time.perf_counter() - t0
+    return engine
+

@@ -1,0 +1,20 @@
+"""On the card: the tiny cell end to end, traced, with its rooflines
+read from the device trace.  Skips without a CUDA device."""
+
+import pytest
+import torch
+
+from benchmark.harness import runner
+from conftest import TINY_CELL
+
+
+@pytest.mark.card
+def test_tiny_cell_traced_on_the_card(tiny_bench):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    r = runner.run(TINY_CELL, 2**31 + 5, 1.0, True, device="cuda", bench_json=tiny_bench)
+    assert r["correct"], r["checks"]
+    m = {k: v["value"] for k, v in r["metrics"].items()}
+    assert 0 < m["k2_roofline.sweep"] <= 105 and 0 < m["k4_roofline.sweep"] <= 105
+    assert 0 <= m["device.idle_share.sweep"] < 100
+    assert r["device"]["platform"] == "gpu" and r["device"]["busy_s"] > 0
