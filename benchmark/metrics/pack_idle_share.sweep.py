@@ -1,0 +1,16 @@
+"""pack_idle_share.sweep: the share of the traced window, in %, in which
+the cards were idle while the host packed a batch's upload: the idle
+gaps that fall in the engine's own ``host.pack`` span (``_flush`` and
+``_encode_payload``, a part of ``host.batchgen``), mean over the cards,
+over the window.  0 where the cards never waited so, and on a program
+that predates the span (its traced run still ends).
+
+layer: host batching (search/engine.py _work_stream, _batches, _flush)
+source: device_trace; moves: search_words_per_s
+"""
+
+
+def read(ctx):
+    if not ctx.trace or not ctx.trace.devices:
+        return None
+    return 100.0 * ctx.trace.gaps.get("host.pack", 0.0) / ctx.trace.window_s

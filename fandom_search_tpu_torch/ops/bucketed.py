@@ -46,6 +46,7 @@ budget, as it does for its other budgets.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -437,7 +438,7 @@ def _rank_compact(row_s, neg_s, sid_s, pair_count, *, k: int, dim: int, max_out:
 
 def _stage_parts(stream, q_emb, entries, offsets, s_emb, *, n, cap, num_buckets, salts,
                  k, dim, threshold, max_out, pairs_mode, risk_budget=None, ns_valid=None,
-                 drop_risk=None):
+                 drop_risk=None, stage=contextlib.nullcontext):
     """The candidate stage run part by part: {name: (part, result)} in
     order, where ``part()`` reruns that part alone on what the parts
     before it made, so that each can be timed alone.  The flat path ends
@@ -447,7 +448,8 @@ def _stage_parts(stream, q_emb, entries, offsets, s_emb, *, n, cap, num_buckets,
     their rows ((rows, count)); with ``ns_valid`` as well, "stage2" runs
     K2 on them and "merge" joins the two triple sets.  ``drop_risk``
     drops the at-risk queries without a ``risk_budget`` (the sharded
-    hybrid compacts their rows across shards)."""
+    hybrid compacts their rows across shards).  Every part but "stage2"
+    runs inside a ``stage()`` context (the engine's timer of stage 1)."""
     if stream.shape[0] < n:
         raise ValueError(
             f"query stream of {stream.shape[0]} tokens is shorter than "
@@ -456,7 +458,8 @@ def _stage_parts(stream, q_emb, entries, offsets, s_emb, *, n, cap, num_buckets,
     parts = {}
 
     def run(name, part):
-        parts[name] = (part, part())
+        with contextlib.nullcontext() if name == "stage2" else stage():
+            parts[name] = (part, part())
         return parts[name][1]
 
     hybrid = risk_budget is not None
@@ -670,11 +673,18 @@ def attach_bucketed_prefilter(engine, cfg: BucketedConfig,
         engine._bucketed_risk_budget = max(1024, engine._bucketed_risk_budget or 0)
 
         def candidates(stream, *, max_out, risk_budget):
+            # bucketed_hybrid's parts, stage 1 timed; while tracing, the
+            # at-risk rows go to the fused step for the k2_rows_needed count
+            trace = engine._trace
             q_emb = embed_shingles(stream, dix.mults)
-            return bucketed_hybrid(stream, q_emb, max_out=max_out, risk_budget=risk_budget,
-                                   **kw)
+            parts = _stage_parts(stream, q_emb, max_out=max_out, risk_budget=risk_budget,
+                                 stage=lambda: trace.device("stage.bucket", "d_bucket_stage"),
+                                 **kw)
+            rows, count = parts["risk_rows"][1]
+            return (*parts["merge"][1], count) + ((rows,) if trace.on else ())
 
     engine._candidates_fn = candidates
+    engine._k2_on_stream = False
     # uploads go raw, as on the JAX engine's two-stage prefilter flow
     engine._venc = None
 

@@ -347,5 +347,6 @@ def attach_lsh_prefilter(engine, cfg: LSHConfig, lsh: LSHIndex | None = None) ->
                                   ns_true, xcfg.k, max_out)
 
     engine._candidates_fn = candidates
+    engine._k2_on_stream = False
     # uploads go raw, as on the JAX engine's two-stage prefilter flow
     engine._venc = None

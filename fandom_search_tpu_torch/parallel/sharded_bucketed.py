@@ -102,12 +102,15 @@ def attach_bucketed_prefilter_sharded(engine, cfg: BucketedConfig,
         exact = exact_on_risk_rows(
             embed_shingles(stream, dix.mults), risk_rows, dix.s_emb, dix.s_emb.shape[0],
             k=xcfg.k, dim=scfg.dim, threshold=xcfg.candidate_threshold, max_out=max_out)
+        # while tracing, the at-risk rows go to the fused step for the
+        # k2_rows_needed count
         return (*merge_triples(*flat, *exact, max_out=max_out),
-                at_risk.sum(dtype=torch.int32))
+                at_risk.sum(dtype=torch.int32)) + ((risk_rows,) if engine._trace.on else ())
 
     # sticky, pow2-grown by the engine's retry like its other budgets
     engine._bucketed_risk_budget = (
         max(1024, engine._bucketed_risk_budget or 0) if hybrid else None)
     engine._candidates_fn = candidates
+    engine._k2_on_stream = False
     # uploads go raw, as on the JAX engine's two-stage prefilter flow
     engine._venc = None

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import functools
 import logging
-import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, NamedTuple, Tuple
 
@@ -46,6 +45,7 @@ from fandom_search_tpu_torch.search.chain import chain_hits_arrays
 from fandom_search_tpu_torch.search.index import ScriptIndex, index_from_numpy
 from fandom_search_tpu_torch.search.types import MatchRow
 from fandom_search_tpu_torch.search.vocab_stream import StreamVocab
+from fandom_search_tpu_torch.utils.profiling import Tracer, tracing
 
 log = logging.getLogger(__name__)
 
@@ -312,14 +312,16 @@ def fused_step(stream_ext: torch.Tensor, dix: DeviceIndex, *,
     the span starts, then the span lengths (uint32 bit patterns).
     ``candidates_fn(stream, max_out=...)`` returns what
     ``compact_candidates`` returns, and may add a fifth element, the
-    bucketed hybrid's at-risk query count; it defaults to
-    ``exact_candidates``.  ``sw_fn`` scores the verify batch
+    bucketed hybrid's at-risk query count, and a sixth, its at-risk rows
+    (given while tracing, for the ``k2_rows_needed`` count); it defaults
+    to ``exact_candidates``.  ``sw_fn`` scores the verify batch
     (``sw_normalized``'s signature; the sharded engine splits it over
     its works devices).  Returns f32 [5, verify_budget], the layout of
     the JAX engine's ``_fused_impl``: rows 0-3 are (qpos, line, score,
     verify_score) of the verified hits; row 4 holds (candidates,
-    deduped, verified) in its first three slots and the at-risk count,
-    where there is one, in the fourth.
+    deduped, verified) in its first three slots, the at-risk count,
+    where there is one, in the fourth, and where the at-risk rows are
+    given, in the fifth, how many of them start a shingle inside one work.
     """
     n, dim = shingle_cfg.n, shingle_cfg.dim
     t_pad = stream_ext.shape[0] - 2 * nspans
@@ -334,7 +336,8 @@ def fused_step(stream_ext: torch.Tensor, dix: DeviceIndex, *,
     return fused_tail(
         stream, sp_start, sp_len, qpos, sidx, score, cand_count, dix,
         n=n, dim=dim, search_cfg=search_cfg, verify_budget=verify_budget,
-        nspans=nspans, risk_count=risk[0] if risk else None, sw_fn=sw_fn,
+        nspans=nspans, risk_count=risk[0] if risk else None,
+        risk_rows=risk[1] if len(risk) > 1 else None, sw_fn=sw_fn,
     )
 
 
@@ -381,7 +384,8 @@ def _packable(t_pad: int, n_lines: int, width: int) -> bool:
 def fused_tail(stream, sp_start, sp_len, qpos, sidx, score, cand_count,
                dix: DeviceIndex, *, n: int, dim: int,
                search_cfg: SearchConfig, verify_budget: int,
-               nspans: int, risk_count=None, sw_fn=sw_normalized) -> torch.Tensor:
+               nspans: int, risk_count=None, risk_rows=None,
+               sw_fn=sw_normalized) -> torch.Tensor:
     """Dedup -> windows -> verification -> verified-hit compaction."""
     dev = stream.device
     t_pad = stream.shape[0]
@@ -464,6 +468,11 @@ def fused_tail(stream, sp_start, sp_len, qpos, sidx, score, cand_count,
     counts[:3] = torch.stack([cand_count, uniq_count, ver_count]).float()
     if risk_count is not None:
         counts[3] = risk_count.float()
+    if risk_rows is not None:
+        # the at-risk rows (-1: none) that start a shingle inside one work
+        i = (torch.searchsorted(sp_start, risk_rows, right=True) - 1).clamp(0, nspans - 1)
+        st = sp_start[i]
+        counts[4] = ((risk_rows >= st) & (risk_rows <= st + sp_len[i] - n)).sum().float()
     return torch.stack([
         q_u[vsafe].float(),
         line_u[vsafe].float(),
@@ -518,6 +527,12 @@ class SearchEngine:
         self._bucketed_risk_budget = None
         self._bucketed_risk_queries = 0
         self._bucketed_total_queries = 0
+        # Whether the candidate stage runs K2 on every stream row (the
+        # exact stage; a prefilter clears it), for the K2 row counters.
+        self._k2_on_stream = True
+        # The timers and counters of the search in progress; outside a
+        # search they go to a throwaway EngineStats.
+        self._trace = Tracer(EngineStats(), self.device)
 
     @classmethod
     def from_index(cls, index, cfg: PipelineConfig, *, device="cuda"):
@@ -595,25 +610,26 @@ class SearchEngine:
         its ``EncodedBatch`` (``_encode_payload``).  Unused span slots
         hold a large sentinel start (keeps the searchsorted monotone)
         and zero length."""
-        tokens = sum(len(tk) for _, tk, _ in items)
-        t_pad = t_pad_for(tokens)
-        nspans = _next_pow2(len(items), 512)
-        ext = np.zeros((t_pad + 2 * nspans,), dtype=np.uint32)
-        stream = ext[:t_pad]
-        sp = ext[t_pad:]
-        sp[:nspans] = 1 << 30
-        spans = []
-        off = 0
-        fresh_total = 0
-        for j, (wid, tk, fresh) in enumerate(items):
-            m = len(tk)
-            stream[off : off + m] = tk.hashes
-            sp[j] = off
-            sp[nspans + j] = m
-            spans.append((wid, off, m))
-            off += m
-            fresh_total += max(0, fresh)
-        return self._encode_payload(ext, off, t_pad, nspans), nspans, spans, fresh_total
+        with self._trace.host("host.pack", "s_pack"):
+            tokens = sum(len(tk) for _, tk, _ in items)
+            t_pad = t_pad_for(tokens)
+            nspans = _next_pow2(len(items), 512)
+            ext = np.zeros((t_pad + 2 * nspans,), dtype=np.uint32)
+            stream = ext[:t_pad]
+            sp = ext[t_pad:]
+            sp[:nspans] = 1 << 30
+            spans = []
+            off = 0
+            fresh_total = 0
+            for j, (wid, tk, fresh) in enumerate(items):
+                m = len(tk)
+                stream[off : off + m] = tk.hashes
+                sp[j] = off
+                sp[nspans + j] = m
+                spans.append((wid, off, m))
+                off += m
+                fresh_total += max(0, fresh)
+            return self._encode_payload(ext, off, t_pad, nspans), nspans, spans, fresh_total
 
     def _encode_payload(self, ext, valid: int, t_pad: int, nspans: int):
         """``ext`` itself, or its ``EncodedBatch`` when the vocab encoder
@@ -684,6 +700,28 @@ class SearchEngine:
         if self.index.num_shingles == 0:
             return [], stats
 
+        # stage timers (the host span of each in brackets): s_batchgen =
+        # batch generation [host.batchgen], in it s_tokenize_wait = the
+        # wait on the tokenizer threads [host.tokenize_wait] and s_pack =
+        # packing [host.pack]; s_pull = the wait for a batch's result
+        # [host.pull]; s_host = host post-processing [host.post] and
+        # chaining [host.chain]
+        for key in ("s_batchgen", "s_tokenize_wait", "s_pack", "s_pull", "s_host"):
+            stats.extra[key] = 0.0
+        self._trace = Tracer(stats, self.device, on=tracing())
+        try:
+            rows = self._search(raw, tokenized, stats)
+        finally:
+            self._trace = Tracer(EngineStats(), self.device)
+        if self._bucketed_total_queries:
+            stats.extra["bucketed_risk_frac"] = (
+                self._bucketed_risk_queries / self._bucketed_total_queries
+            )
+        return rows, stats
+
+    def _search(self, raw, tokenized, stats: EngineStats) -> List[MatchRow]:
+        scfg, xcfg = self.cfg.shingle, self.cfg.search
+        trace = self._trace
         items = self._work_stream(raw, tokenized)
         acc = _HitAccumulator(tokenized)
         pending: List[Tuple] = []
@@ -691,16 +729,10 @@ class SearchEngine:
         # launches are asynchronous, so the device runs ahead while the
         # host packs and post-processes.
         lookahead = max(1, xcfg.lookahead_batches)
-        # stage timers: s_batchgen = tokenize + pack wait, s_pull = the
-        # wait for a batch's result, s_host = host post-processing and
-        # chaining
-        for key in ("s_batchgen", "s_pull", "s_host"):
-            stats.extra[key] = 0.0
         gen = self._batches(items)
         while True:
-            t_g = time.perf_counter()
-            nxt = next(gen, None)
-            stats.extra["s_batchgen"] += time.perf_counter() - t_g
+            with trace.host("host.batchgen", "s_batchgen"):
+                nxt = next(gen, None)
             if nxt is None:
                 break
             payload, nspans, spans, fresh = nxt
@@ -711,24 +743,17 @@ class SearchEngine:
                 self._process_fused(*pending.pop(0), stats, acc)
         while pending:
             self._process_fused(*pending.pop(0), stats, acc)
+        trace.resolve(wait=True)
 
-        t0 = time.perf_counter()
-        widx, fpos, line, sc, vs = acc.finalize()
-        rows = chain_hits_arrays(
-            widx, fpos, line, sc, vs, acc.work_ids, tokenized,
-            self.index, scfg, xcfg,
-        )
-        stats.seconds_host += time.perf_counter() - t0
-        stats.extra["s_host"] += time.perf_counter() - t0
-        if self._bucketed_total_queries:
-            stats.extra["bucketed_risk_frac"] = (
-                self._bucketed_risk_queries / self._bucketed_total_queries
+        with trace.host("host.chain", ("s_host", "seconds_host")):
+            widx, fpos, line, sc, vs = acc.finalize()
+            return chain_hits_arrays(
+                widx, fpos, line, sc, vs, acc.work_ids, tokenized,
+                self.index, scfg, xcfg,
             )
-        return rows, stats
 
-    @staticmethod
     def _work_stream(
-        raw: Dict[str, str], tokenized: Dict[str, Tokenized],
+        self, raw: Dict[str, str], tokenized: Dict[str, Tokenized],
         chunk: int = 1024,
     ) -> Iterable[Tuple[str, Tokenized]]:
         """All works in sorted id order; raw text tokenizes on worker
@@ -755,7 +780,8 @@ class SearchEngine:
                 )
                 nxt = 3
                 while pending:
-                    done = pending.popleft().result()
+                    with self._trace.host("host.tokenize_wait", "s_tokenize_wait"):
+                        done = pending.popleft().result()
                     if nxt < len(spans):
                         pending.append(ex.submit(
                             tokenize_many,
@@ -784,9 +810,12 @@ class SearchEngine:
         to a bucketed hybrid's candidate stage."""
         fn = self._candidates_fn
         if self._bucketed_risk_budget is not None:
-            fn = functools.partial(
-                fn, risk_budget=risk_budget or self._bucketed_risk_budget
-            )
+            risk_budget = risk_budget or self._bucketed_risk_budget
+            fn = functools.partial(fn, risk_budget=risk_budget)
+            self._trace.add("k2_rows_launched", risk_budget)
+        elif self._k2_on_stream:
+            self._trace.add("k2_rows_launched", max(
+                0, ext_dev.shape[0] - 2 * nspans - self.cfg.shingle.n + 1))
         return fused_step(
             ext_dev, self._dix,
             shingle_cfg=self.cfg.shingle, search_cfg=self.cfg.search,
@@ -795,12 +824,11 @@ class SearchEngine:
         )
 
     def _submit_fused(self, payload, nspans, spans, stats: EngineStats):
-        t0 = time.perf_counter()
-        ext_dev = self._device_ext(payload, nspans)
-        budgets = (self._cand_budget, self._verify_budget,
-                   self._bucketed_risk_budget)
-        out = self._fused_call(ext_dev, nspans, *budgets)
-        stats.seconds_device_topk += time.perf_counter() - t0
+        with self._trace.host("host.submit", "seconds_device_topk"):
+            ext_dev = self._device_ext(payload, nspans)
+            budgets = (self._cand_budget, self._verify_budget,
+                       self._bucketed_risk_budget)
+            out = self._fused_call(ext_dev, nspans, *budgets)
         return (ext_dev, spans, nspans, *budgets, out)
 
     def _process_fused(
@@ -808,75 +836,89 @@ class SearchEngine:
         risk_budget, out, stats: EngineStats, acc: _HitAccumulator,
     ) -> None:
         scfg, xcfg = self.cfg.shingle, self.cfg.search
-        t0 = time.perf_counter()
-        while True:
-            t_p = time.perf_counter()
-            host = out.cpu().numpy()  # ONE pull per batch
-            stats.extra["s_pull"] += time.perf_counter() - t_p
-            cand_count = int(host[4, 0])
-            uniq_count = int(host[4, 1])
-            if risk_budget is not None:
-                # the hybrid's triples hold every at-risk query only when
-                # they fit its risk budget; the other counts wait for that
-                risk_count = int(host[4, 3])
-                if risk_count > risk_budget:
-                    risk_budget = _next_pow2(risk_count, risk_budget * 2)
-                    self._bucketed_risk_budget = max(
-                        self._bucketed_risk_budget, risk_budget
+        trace = self._trace
+        with trace.host("host.pull_post", "seconds_host"):
+            first = True
+            while True:
+                with trace.host("host.pull", "s_pull"):
+                    host = out.cpu().numpy()  # ONE pull per batch
+                trace.resolve()
+                if first:
+                    first = False
+                    self._count_k2_needed(spans, risk_budget, host)
+                cand_count = int(host[4, 0])
+                uniq_count = int(host[4, 1])
+                if risk_budget is not None:
+                    # the hybrid's triples hold every at-risk query only when
+                    # they fit its risk budget; the other counts wait for that
+                    risk_count = int(host[4, 3])
+                    if risk_count > risk_budget:
+                        risk_budget = _next_pow2(risk_count, risk_budget * 2)
+                        self._bucketed_risk_budget = max(
+                            self._bucketed_risk_budget, risk_budget
+                        )
+                        log.info(
+                            "at-risk rows exceeded (%d); retrying batch with "
+                            "risk budget %d", risk_count, risk_budget,
+                        )
+                        out = self._fused_call(
+                            ext_dev, nspans, cand_budget, verify_budget, risk_budget
+                        )
+                        continue
+                    self._bucketed_risk_queries += risk_count
+                    self._bucketed_total_queries += max(
+                        0, ext_dev.shape[0] - 2 * nspans - scfg.n + 1
                     )
-                    log.info(
-                        "at-risk rows exceeded (%d); retrying batch with "
-                        "risk budget %d", risk_count, risk_budget,
-                    )
-                    out = self._fused_call(
-                        ext_dev, nspans, cand_budget, verify_budget, risk_budget
-                    )
-                    continue
-                self._bucketed_risk_queries += risk_count
-                self._bucketed_total_queries += max(
-                    0, ext_dev.shape[0] - 2 * nspans - scfg.n + 1
+                retry = False
+                if cand_count > cand_budget:
+                    cand_budget = _next_pow2(cand_count, cand_budget * 2)
+                    self._cand_budget = max(self._cand_budget, cand_budget)
+                    retry = True
+                if uniq_count > verify_budget:
+                    verify_budget = _next_pow2(uniq_count, verify_budget * 2)
+                    self._verify_budget = max(self._verify_budget, verify_budget)
+                    retry = True
+                if not retry:
+                    break
+                log.info(
+                    "budget exceeded (cand=%d uniq=%d); retrying batch with "
+                    "budgets %d/%d", cand_count, uniq_count,
+                    cand_budget, verify_budget,
                 )
-            retry = False
-            if cand_count > cand_budget:
-                cand_budget = _next_pow2(cand_count, cand_budget * 2)
-                self._cand_budget = max(self._cand_budget, cand_budget)
-                retry = True
-            if uniq_count > verify_budget:
-                verify_budget = _next_pow2(uniq_count, verify_budget * 2)
-                self._verify_budget = max(self._verify_budget, verify_budget)
-                retry = True
-            if not retry:
-                break
-            log.info(
-                "budget exceeded (cand=%d uniq=%d); retrying batch with "
-                "budgets %d/%d", cand_count, uniq_count,
-                cand_budget, verify_budget,
-            )
-            out = self._fused_call(
-                ext_dev, nspans, cand_budget, verify_budget, risk_budget
-            )
-        t_h = time.perf_counter()
-        ver_count = int(host[4, 2])
-        stats.num_candidates += uniq_count
+                out = self._fused_call(
+                    ext_dev, nspans, cand_budget, verify_budget, risk_budget
+                )
+            with trace.host("host.post", "s_host"):
+                ver_count = int(host[4, 2])
+                stats.num_candidates += uniq_count
 
-        starts = np.array([off for _, off, _ in spans], dtype=np.int64)
-        qpos = host[0, :ver_count].astype(np.int64)
-        line = host[1, :ver_count].astype(np.int64)
-        score = host[2, :ver_count]
-        vscore = host[3, :ver_count]
-        span_of = np.searchsorted(starts, qpos, side="right") - 1
-        local = qpos - starts[span_of]
-        span_widx, span_fold, span_split, span_wlen = acc.span_tables(spans)
-        span_len = np.array([m for _, _, m in spans], dtype=np.int64)
-        keep = acc.split_window_ok(
-            local, span_of, span_fold, span_split, span_wlen, span_len,
-            xcfg.window_tokens, (xcfg.window_tokens - scfg.n) // 2,
-        )
-        sp_k = span_of[keep]
-        stats.num_verified += int(keep.sum())
-        acc.add(
-            span_widx[sp_k], local[keep] + span_fold[sp_k], line[keep],
-            score[keep], vscore[keep], span_split[sp_k],
-        )
-        stats.extra["s_host"] += time.perf_counter() - t_h
-        stats.seconds_host += time.perf_counter() - t0
+                starts = np.array([off for _, off, _ in spans], dtype=np.int64)
+                qpos = host[0, :ver_count].astype(np.int64)
+                line = host[1, :ver_count].astype(np.int64)
+                score = host[2, :ver_count]
+                vscore = host[3, :ver_count]
+                span_of = np.searchsorted(starts, qpos, side="right") - 1
+                local = qpos - starts[span_of]
+                span_widx, span_fold, span_split, span_wlen = acc.span_tables(spans)
+                span_len = np.array([m for _, _, m in spans], dtype=np.int64)
+                keep = acc.split_window_ok(
+                    local, span_of, span_fold, span_split, span_wlen, span_len,
+                    xcfg.window_tokens, (xcfg.window_tokens - scfg.n) // 2,
+                )
+                sp_k = span_of[keep]
+                stats.num_verified += int(keep.sum())
+                acc.add(
+                    span_widx[sp_k], local[keep] + span_fold[sp_k], line[keep],
+                    score[keep], vscore[keep], span_split[sp_k],
+                )
+
+    def _count_k2_needed(self, spans, risk_budget, host) -> None:
+        """Add a batch's ``k2_rows_needed`` once, at its first pull: on the
+        exact stage its work shingles, on the hybrid (while tracing) the
+        at-risk rows of its first launch that start a shingle inside one
+        work, counted on the device.  A rerun needs no more rows."""
+        if risk_budget is None and self._k2_on_stream:
+            n = self.cfg.shingle.n
+            self._trace.add("k2_rows_needed", sum(max(0, m - n + 1) for _, _, m in spans))
+        elif risk_budget is not None and self._trace.on:
+            self._trace.add("k2_rows_needed", int(host[4, 4]))

@@ -35,7 +35,7 @@ from fandom_search_tpu_torch.search import persist
 from fandom_search_tpu_torch.search.engine import SearchEngine
 from fandom_search_tpu_torch.search.index import index_from_numpy
 from fandom_search_tpu_torch.search.runner import ResumableRunner
-from fandom_search_tpu_torch.utils.profiling import StageTimer, busy_share
+from fandom_search_tpu_torch.utils.profiling import busy_share
 
 # small device batches: the rows do not depend on the batch size, and the
 # plain versions then stay cheap on a CPU shared with the suite's workers
@@ -214,16 +214,6 @@ def test_resumable_runner_detects_corpus_change(tmp_path, world):
     direct, _ = eng.search_works(grown)
     assert sorted(_rows(rows)) == sorted(_rows(direct))
     assert any(r.work_id == "a_" + first_id for r in rows)
-
-
-def test_stage_timer():
-    t = StageTimer()
-    x = torch.zeros(3)
-    for stage in ("a", "a", "b"):
-        with t(stage, sync=x):
-            pass
-    d = t.as_dict()
-    assert d["a"]["calls"] == 2 and d["b"]["calls"] == 1
 
 
 # ---- the CLI verbs, port against the JAX CLI ------------------------------
