@@ -38,6 +38,13 @@ and time:
    the engine shape gated, 2^14 rows exact at k 10 and 32, and a padding
    batch (the first batch with its last 30% of tokens zero), every slot
    against the plain version; K2 and K7 timed in turns, with TOP/s.
+   K2 at dim 128 and k <= 32 runs on warpgroup MMA (topk_dot_wgmma, a
+   launch counter of its own that every path at that shape must count);
+   it is also held to the plain version at the benchmark cells' launch
+   shapes (2^20 x 2^20 and 2^18 x 2^22, gated) and at 2,048 x 2^20 (the
+   script in column ranges, gated and exact), on K2_HELD_ROWS rows around
+   block boundaries and on a part-filled last block, and timed in turns
+   with K7 (the mma.sync producer) beside the bound.
    K5: the packed route (int16 halves on DPX) at the engine's parameters
    and the f32 route at match 2.5 / mismatch -1.25 / gap -0.75, each held
    to its route by the counters, on 8,192 length-sorted 64 x 64 pairs
@@ -236,15 +243,20 @@ KERNELS = (
      "fandom_search_tpu/ops/lsh.py:121", "lsh"),
     ("topk_dot_rows", "K7 distance_topk_rows", "csrc/distance_topk_rows.cu",
      "fandom_search_tpu/ops/distance_topk.py:418", "rows_ab"),
+    ("topk_dot_wgmma", "K2 distance_topk, warpgroup-MMA route (dim 128, k <= 32)",
+     "csrc/distance_topk.cu", "fandom_search_tpu/ops/distance_topk.py:104", "exact"),
 )
-# which kernels each path must launch; the others must stay at 0
-EXACT = ("embed_shingles", "topk_dot", "scan1d_i32", "sw_wide")
+# which kernels each path must launch; the others must stay at 0 (K2 at
+# the engine's dim 128 and k <= 32 runs on warpgroup MMA, topk_dot_wgmma)
+EXACT = ("embed_shingles", "topk_dot", "topk_dot_wgmma", "scan1d_i32", "sw_wide")
 PATHS = {
     "exact": EXACT,
+    # the exact path at dim 256 or k 40: K2 on the mma.sync producer
+    "exact_wide": ("embed_shingles", "topk_dot", "scan1d_i32", "sw_wide"),
     "lsh": ("embed_shingles", "scan1d_i32", "sw_lane_i16", "hamming_topk"),
     # the LSH path at non-integral Smith-Waterman parameters: K5's f32 route
     "lsh_f32": ("embed_shingles", "scan1d_i32", "sw_lane_f32", "hamming_topk"),
-    "rows_ab": ("topk_dot", "topk_dot_rows"),
+    "rows_ab": ("topk_dot", "topk_dot_wgmma", "topk_dot_rows"),
     # index (+ --lsh), search --index (+ --lsh: K6, then K4 verifies)
     "index_search": EXACT + ("hamming_topk",),
     "serve": EXACT,
@@ -938,6 +950,96 @@ def topk_check(engine, tok, q):
                                  f"batch equal to plain in every slot, K2 and K7; "
                                  f"K2 {out['topk_dot']}; K7 {out['topk_dot_rows']}")
     return out
+
+
+def k2_wgmma_check(seed: int):
+    """K2's warpgroup-MMA route (dim 128, k <= 32) at the benchmark cells'
+    launch shapes, 2^20 rows against 2^20 script rows (the series' exact
+    path) and 2^18 against 2^22 (the canon's at-risk rows), and at 2,048
+    against 2^20 (a request's rows, the script cut into column ranges):
+    sign embeddings of 6-token shingles with an eighth of the rows copied
+    from the script, k 10.  Each shape gated at min_keep 3.5 is held to the
+    plain version in every slot on K2_HELD_ROWS rows around block
+    boundaries (the whole batch at 2,048 rows, also exact) and, with 173
+    rows fewer, on the last, part-filled block; K2 and K7 (the mma.sync
+    producer) timed in turns beside the bound.  Fails unless every call
+    counted in topk_dot.launches_wgmma."""
+    import torch
+
+    from fandom_search_tpu_torch.ops.distance_topk import (
+        WGMMA_BLOCK_ROWS, min_keep_int, topk_dot, topk_dot_plain, wgmma_splits,
+    )
+
+    t0 = phase("K2 wgmma shapes")
+    g = torch.Generator(device="cuda").manual_seed(seed + 18)
+    popc = torch.tensor([bin(x).count("1") for x in range(64)], dtype=torch.int8,
+                        device="cuda")
+
+    def emb(n):
+        # entries 2 * Binomial(6, 1/2) - 6, as six +-1 sign rows summed
+        return (popc[torch.randint(0, 64, (n, 128), generator=g, device="cuda")] * 2
+                - 6).to(torch.int8)
+
+    def same_rows(got, want, lo, hi):
+        return (torch.equal(got[0][lo:hi], want[0]) and torch.equal(got[1][lo:hi], want[1]))
+
+    k, thr, dim = 10, 3.5, 128
+    keep = min_keep_int(thr, dim)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, nq, ns in (("series", 1 << 20, 1 << 20), ("canon", 1 << 18, 1 << 22),
+                         ("request", 2048, 1 << 20)):
+        s = emb(ns)
+        q = emb(nq)
+        rows = torch.randint(0, nq, (nq // 8,), generator=g, device="cuda")
+        q[rows] = s[torch.randint(0, ns, (nq // 8,), generator=g, device="cuda")]
+        n0 = topk_dot.launches_wgmma
+        got = topk_dot(q, s, ns, k, min_keep=thr)
+        part = nq - 173
+        got_p = topk_dot(q[:part], s, ns, k, min_keep=thr)
+        torch.cuda.synchronize()
+        held = []
+        mid = nq // 2 // WGMMA_BLOCK_ROWS * WGMMA_BLOCK_ROWS
+        lo = max(0, mid - K2_HELD_ROWS // 2)
+        hi = min(nq, lo + K2_HELD_ROWS)
+        want = topk_dot_plain(q[lo:hi], s, ns, k, keep)
+        check(same_rows(got, want, lo, hi),
+              f"K2 (wgmma) differs from plain at {name} {nq} x {ns}, rows {lo}-{hi}")
+        check(int((want[0] >= thr).sum()) > 0, f"K2 (wgmma) {name}: nothing above min_keep")
+        held.append([lo, hi])
+        last = (part - 1) // WGMMA_BLOCK_ROWS * WGMMA_BLOCK_ROWS
+        want = topk_dot_plain(q[last:part], s, ns, k, keep)
+        check(same_rows(got_p, want, last, part),
+              f"K2 (wgmma) differs from plain on the part-filled last block at {name} "
+              f"{part} x {ns}, rows {last}-{part}")
+        held.append([last, part])
+        exact = None
+        if nq <= K2_HELD_ROWS:
+            got_x = topk_dot(q, s, ns, k)
+            torch.cuda.synchronize()
+            want_x = topk_dot_plain(q, s, ns, k, min_keep_int(-float("inf"), dim))
+            check(same_rows(got_x, want_x, 0, nq),
+                  f"K2 (wgmma) exact mode differs from plain at {name} {nq} x {ns}")
+            exact = cuda_ms(lambda: topk_dot(q, s, ns, k), 3)
+        check(topk_dot.launches_wgmma - n0 == 2 + (exact is not None) * 5,
+              f"K2 at {name} did not count in topk_dot.launches_wgmma")
+        reps = 2 if nq * ns > 1 << 36 else 10
+        times = {"insert": [], "rows": []}
+        for merge in ("insert", "rows", "rows", "insert"):
+            times[merge].append(cuda_ms(
+                lambda: topk_dot(q, s, ns, k, min_keep=thr, merge=merge), reps))
+        ops = 2 * nq * ns * dim
+        ms = min(times["insert"])
+        out[name] = dict(
+            shape=f"NQ={nq} NS={ns} k={k} min_keep={thr}", splits=wgmma_splits(nq, ns, sms),
+            held_rows=held, ms=ms, runs_ms=times["insert"], k7_ms=min(times["rows"]),
+            k7_runs_ms=times["rows"], exact_ms=exact, tops=ops / (ms / 1e3) / 1e12,
+            int8_peak_share=ops / (ms / 1e3) / INT8_OPS_S,
+            **bound(q.numel() + s.numel() + nq * k * 8, ops, INT8_OPS_S))
+        del q, s, got, got_p, want
+        torch.cuda.empty_cache()
+    done("K2 wgmma shapes", t0, f"every held slot equal to plain; {out}")
+    return dict(shapes=out)
 
 
 def topk_wide_check(engine, tok, q, index):
@@ -1697,6 +1799,7 @@ def wide_configs(index, cfg, works, sample: int = 600, oracle_sample: int = 40,
     and the rows of ``oracle_sample`` works held to the NumPy oracle."""
     import dataclasses
 
+    from fandom_search_tpu_torch.ops.distance_topk import wgmma_route
     from fandom_search_tpu_torch.search.engine import SearchEngine
     from fandom_search_tpu_torch.search.index import build_script_index
 
@@ -1713,7 +1816,8 @@ def wide_configs(index, cfg, works, sample: int = 600, oracle_sample: int = 40,
                                 search=dataclasses.replace(cfg.search, **search_kw))
         idx = build_script_index(index.lines, c.shingle, c.search)
         engine = SearchEngine(idx, c, device=device)
-        (rows, stats, seconds), launches[name] = counted("exact", lambda: search(engine, sub))
+        path = "exact" if wgmma_route(c.shingle.dim, c.search.k) else "exact_wide"
+        (rows, stats, seconds), launches[name] = counted(path, lambda: search(engine, sub))
         oids = set(ids[:oracle_sample])
         orows = oracle_rows({w: sub[w] for w in sorted(oids)}, idx, c)
         key = lambda r: (r.work_id, r.fan_token_start, r.line_no)  # noqa: E731
@@ -3018,6 +3122,7 @@ def main(argv=None) -> int:
     q_emb = embed_shingles(tok, engine._dix.mults)
     res["topk_dot"]["new_shapes"], res["topk_dot_rows"]["new_shapes"] = topk_wide_check(
         engine, tok, q_emb, index)
+    res["topk_dot_wgmma"] = k2_wgmma_check(args.seed)
     res["hamming_topk"]["new_shapes"] = hamming_wide_check(engine, q_emb)
     del q_emb
     launches = {}

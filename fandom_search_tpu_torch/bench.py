@@ -100,6 +100,7 @@ COUNTERS = {
     "sw_lane_f32": ("smith_waterman", "sw_lane", "launches_f32"),
     "hamming_topk": ("lsh", "hamming_topk", "launches"),
     "topk_dot_rows": ("distance_topk", "topk_dot", "launches_rows"),
+    "topk_dot_wgmma": ("distance_topk", "topk_dot", "launches_wgmma"),
 }
 _REF_PACKAGES = ("sklearn", "Levenshtein")
 

@@ -1,9 +1,16 @@
 // Shared pieces of the int8 tensor-core kernels (sm_90a): the PTX
 // wrappers K6 (hamming_topk.cu), K2 (distance_topk.cu) and K7
-// (distance_topk_rows.cu) use, and the score producer K2 and K7 share.
+// (distance_topk_rows.cu) use, the mma.sync score producer K7 and K2's
+// other shapes share, and (namespace hopper) the mbarrier, TMA, wgmma and
+// setmaxnreg wrappers of K2's warpgroup-MMA route at the engine's shape,
+// dim 128 and k <= 32 (its design is in distance_topk.cu).
 //
-// The score producer computes dot(q, s) for dim-128 int8 rows on
-// mma.sync m16n8k32 s8 x s8 -> s32 (exact: |dot| <= 128^3).  A block of
+// The mma.sync producer (namespace tiles) computes dot(q, s) for dim-128
+// int8 rows on mma.sync m16n8k32 s8 x s8 -> s32 (exact: |dot| <= 128^3).
+// It serves K7 at every shape and K2 at dim != 128 or k > 32, the shapes
+// wgmma's register-resident A and 32-slot top-k do not take; on Hopper
+// mma.sync reaches about 44% of the int8 peak here (K7 at 2^20 x 2^20),
+// against 85% for K2's wgmma route.  A block of
 // kWarps warps owns kBlockRows query rows, kWarpRows per warp, so every
 // row's scores, state and merges belong to one warp and need no block
 // barrier.  Both operands are K-major as they lie in memory: q
@@ -102,13 +109,16 @@ constexpr unsigned kFull = 0xffffffffu;
 using AFrag = uint32_t[kMT][4][4];  // [m16 tile][k-step][register]
 using Acc = int[kMT][kNT][4];       // [m16 tile][n8 tile][register]
 
-// The warp's A fragments for rows [r0, r0 + kWarpRows), bytes [koff, koff
-// + 128) of rows ld bytes long; rows >= nq are 0.
+// The warp's A fragments for its kMT 16-row tiles, tile mt at rows [r0 +
+// mt * mstride, + 16), bytes [koff, koff + 128) of rows ld bytes long; rows
+// >= nq are 0.  mstride 16 (mma.sync: the warp's 64 rows in a run) or 64
+// (wgmma: the warp's 16 rows of each m64 tile of its warpgroup).
 __device__ __forceinline__ void load_a(AFrag& a, const int8_t* __restrict__ q, long long nq,
-                                       long long r0, int lane, int ld = kDim, int koff = 0) {
+                                       long long r0, int lane, int ld = kDim, int koff = 0,
+                                       int mstride = 16) {
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt) {
-    const long long ra = r0 + mt * 16 + (lane >> 2);
+    const long long ra = r0 + mt * mstride + (lane >> 2);
     const long long rb = ra + 8;
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
@@ -286,4 +296,120 @@ __device__ __forceinline__ void walk_script_chunked(uint8_t* ring, const int8_t*
 }
 
 }  // namespace tiles
+
+// Hopper's asynchronous pieces (sm_90a): mbarriers, TMA tile loads,
+// warpgroup MMA (wgmma) on int8 with A in registers and B in shared memory
+// under the 128-byte swizzle, and register hand-over between warpgroups.
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of transactions (a TMA load).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box of the 2-D tensor map `map` (a __grid_constant__ kernel
+// parameter) at element (x, y) into shared memory at dst; completes on bar.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t* bar, int x,
+                                            int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator
+// register across the asynchronous wgmma that owns it.
+__device__ __forceinline__ void pin(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// The wgmma descriptor of a K-major operand under the 128-byte swizzle,
+// as TMA writes it: rows of 128 bytes, 8-row atoms 1,024 bytes apart (the
+// stride byte offset; the leading one is unused), the atom 1,024-byte
+// aligned.  Adding 2 moves the start 32 bytes (one k32 step) along K.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// d (+)= a x b over k 32: 64 rows (A: this thread's 4 registers of the
+// warp's 16 rows, the m16n8k32 A layout) by 64 columns of B at desc.
+// d[nt][e] is row 16 * (warp % 4) + lane / 4 + 8 * (e / 2), column nt * 8
+// + 2 * (lane % 4) + e % 2 (the m16n8 layout, once per n8 tile).
+__device__ __forceinline__ void wgmma_n64(int (&d)[8][4], const uint32_t (&a)[4], uint64_t desc,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]), "+r"(d[1][0]),
+        "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]), "+r"(d[2][0]), "+r"(d[2][1]),
+        "+r"(d[2][2]), "+r"(d[2][3]), "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]),
+        "+r"(d[3][3]), "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]), "+r"(d[6][0]),
+        "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]), "+r"(d[7][0]), "+r"(d[7][1]),
+        "+r"(d[7][2]), "+r"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+}  // namespace hopper
 }  // namespace

@@ -39,6 +39,9 @@ _SIGNATURES = {
     "fs_embed": [_P, _P, _P, _L, _I, _I, _P],
     # q, s, vals, idx, nq, ns_valid, dim, k, min_keep_i, inv_dim, stream
     "fs_topk": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _P],
+    # fs_topk's arguments, then part (int64 [splits, nq, k]) and splits,
+    # then the stream
+    "fs_topk_wgmma": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _P, _I, _P],
     # the same arguments as fs_topk (min_keep_i >= 1)
     "fs_topk_rows": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _P],
     # x, out, scratch, n, op (0 add / 1 max), scratch words, stream
@@ -157,6 +160,13 @@ def on_cpu(*tensors) -> bool:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(device) -> int:

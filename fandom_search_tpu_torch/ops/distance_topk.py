@@ -16,10 +16,7 @@ there every slot is equal.
 ``csrc/distance_topk_rows.cu``, when ``min_keep`` is at least 1/dim,
 and K2 below that, as the JAX op sends "rows" to "insertloop" there.
 
-Both kernels score on the int8 tensor cores (``mma.sync`` m16n8k32)
-through one producer, ``csrc/int8_tiles.cuh``: 256 query rows a block,
-64 a warp with their A fragments in registers, script tiles through a
-``cp.async`` ring.  They differ in the merge.  K2 sends each score that
+Both kernels score on the int8 tensor cores.  K2 sends each score that
 reaches its row's gate to a per-row list and merges the list into the
 row's top-k (one entry by an insert, more by a warp bitonic sort and
 merge); the gate rises to the k-th score + 1 once the row is full.  K7
@@ -27,13 +24,21 @@ runs the TPU kernel's per-row kill loop over a score tile that the warp
 writes only when a row's maximum beats its k-th.
 ``utils/topk_cases.py`` holds the edge cases of both designs.
 
-Beside the engine's shape (dim 128, k <= 32) both kernels take any dim
-that is a multiple of 128 (the producer walks 128-byte k-chunks, A
-reloaded per chunk) and any k (above 32 a row's top-k lives in its rows
-of the outputs and entries are inserted by the warp), through their own
-template instantiations.  Scores must satisfy |dot| * 32 < 2^31 (the
-packed step keys), which embeddings with entries in [-n, n] do for any
-dim below 2^26 / n^2.
+K2 at the engine's shape (dim 128, k <= 32; ``wgmma_route``) runs on
+warpgroup MMA (``fs_topk_wgmma``, counted in ``topk_dot.launches_wgmma``
+too): 512 query rows a block in two consumer warpgroups, script tiles
+fed by TMA from a producer warp.  Where the rows fill fewer blocks than
+the card has SMs, the script's tiles are cut into column ranges
+(``wgmma_splits``) and a second kernel merges each row's ranges.  K7 and
+K2's other shapes score on ``mma.sync`` m16n8k32 through one producer,
+``csrc/int8_tiles.cuh``: 256 query rows a block, 64 a warp with their A
+fragments in registers, script tiles through a ``cp.async`` ring.  Those
+take any dim that is a multiple of 128 (the producer walks 128-byte
+k-chunks, A reloaded per chunk) and any k (above 32 a row's top-k lives
+in its rows of the outputs and entries are inserted by the warp), through
+their own template instantiations.  Scores must satisfy |dot| * 32 <
+2^31 (the packed step keys), which embeddings with entries in [-n, n] do
+for any dim below 2^26 / n^2.
 """
 
 from __future__ import annotations
@@ -51,6 +56,30 @@ _KEEP_FLOOR = -(1 << 30)
 _KEY_EMPTY = -(1 << 62)
 _KERNEL_DIM_STEP = 128
 _MERGES = ("insert", "insertloop", "rebuild", "rows")
+# csrc/distance_topk.cu's warpgroup-MMA K2: rows a block, script rows a
+# tile, and the fewest tiles a column range of a split launch walks
+WGMMA_BLOCK_ROWS = 512
+WGMMA_TILE_COLS = 128
+WGMMA_MIN_SPLIT_TILES = 4
+
+
+def wgmma_route(dim: int, k: int) -> bool:
+    """K2 runs on warpgroup MMA (``fs_topk_wgmma``) at the engine's shape,
+    dim 128 and k <= 32; every other shape on the ``mma.sync`` producer
+    (``fs_topk``)."""
+    return dim == 128 and k <= 32
+
+
+def wgmma_splits(nq: int, ns_valid: int, sms: int) -> int:
+    """Column ranges of the script for one warpgroup-MMA K2 launch: 1 when
+    the rows fill at least one block an SM; else as many as keep the
+    blocks (row blocks x ranges) within one wave of ``sms``, each range
+    at least WGMMA_MIN_SPLIT_TILES tiles."""
+    row_blocks = -(-nq // WGMMA_BLOCK_ROWS)
+    tiles = -(-ns_valid // WGMMA_TILE_COLS)
+    if row_blocks >= sms:
+        return 1
+    return max(1, min(sms // row_blocks, tiles // WGMMA_MIN_SPLIT_TILES))
 
 
 def min_keep_int(min_keep: float, dim: int) -> int:
@@ -118,7 +147,8 @@ def topk_dot(q: torch.Tensor, s: torch.Tensor, ns_valid: int, k: int, *,
     scores below it; leave it at -inf for the exact full top-k.
     ``merge="rows"`` with ``min_keep >= 1/dim`` runs K7 (counted in
     ``topk_dot.launches_rows``); every other call runs K2 (counted in
-    ``topk_dot.launches``).  Both compute the same function.
+    ``topk_dot.launches``, and at ``wgmma_route``'s shape also in
+    ``topk_dot.launches_wgmma``).  Both compute the same function.
     """
     if merge not in _MERGES:
         raise ValueError(
@@ -147,19 +177,29 @@ def topk_dot(q: torch.Tensor, s: torch.Tensor, ns_valid: int, k: int, *,
     if nq == 0:
         return vals, idx
     rows = merge == "rows" and keep_i >= 1
-    name = "fs_topk_rows" if rows else "fs_topk"
-    rc = getattr(_cuda.library(), name)(
-        q.data_ptr(), s.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        nq, int(ns_valid), dim, k, keep_i, 1.0 / dim,
-        _cuda.stream_ptr(q.device),
-    )
+    wgmma = not rows and wgmma_route(dim, k)
+    args = (q.data_ptr(), s.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+            nq, int(ns_valid), dim, k, keep_i, 1.0 / dim)
+    if wgmma:
+        name = "fs_topk_wgmma"
+        splits = wgmma_splits(nq, int(ns_valid), _cuda.sm_count(q.device))
+        # freed on return: the caching allocator hands it on only to work
+        # queued after this launch on the same stream
+        part = (torch.empty((splits, nq, k), dtype=torch.int64, device=q.device)
+                if splits > 1 else None)
+        args += (0 if part is None else part.data_ptr(), splits)
+    else:
+        name = "fs_topk_rows" if rows else "fs_topk"
+    rc = getattr(_cuda.library(), name)(*args, _cuda.stream_ptr(q.device))
     _cuda.check(rc, name)
     if rows:
         topk_dot.launches_rows += 1
     else:
         topk_dot.launches += 1
+        topk_dot.launches_wgmma += wgmma
     return vals, idx
 
 
-topk_dot.launches = 0       # K2
-topk_dot.launches_rows = 0  # K7
+topk_dot.launches = 0        # K2
+topk_dot.launches_wgmma = 0  # K2 on warpgroup MMA (dim 128, k <= 32)
+topk_dot.launches_rows = 0   # K7

@@ -3,9 +3,12 @@
 One small world, made from a seed, holds the inputs on which the CUDA
 designs could go wrong; the CPU tests hold the plain version to the JAX
 op on it, and ``chip_smoke.py`` holds both kernels to the plain version
-on it, every slot.  The kernels walk the script in ring tiles of
-``TILE`` rows and epilogue steps of ``STEP`` columns, 256 query rows a
-block, and keep at most ``STEP`` gate-passing entries a row per step.
+on it, every slot.  The ``mma.sync`` kernels walk the script in ring
+tiles of ``TILE`` rows and epilogue steps of ``STEP`` columns, 256 query
+rows a block; K2's warpgroup-MMA route in TMA tiles of ``WG_TILE`` rows
+and steps of 64 columns, 512 query rows a block, the script cut into
+column ranges of 4 tiles at ``NQ`` rows.  Both keep at most ``STEP``
+gate-passing entries a row per list.
 """
 
 from __future__ import annotations
@@ -15,11 +18,13 @@ import numpy as np
 DIM = 128
 STEP = 32
 TILE = 64
+WG_TILE = 128
 # ns_valid: none, one, around a step's and a tile's edge, and ragged
-NS_VALID = (0, 1, STEP - 1, STEP, STEP + 1, TILE - 1, TILE, TILE + 1, 3001)
+NS_VALID = (0, 1, STEP - 1, STEP, STEP + 1, TILE - 1, TILE, TILE + 1,
+            WG_TILE - 1, WG_TILE, WG_TILE + 1, 3001)
 KS = (1, 10, 16, 17, 32)
 MIN_KEEP = 3.5  # the engine's candidate threshold
-NQ = 300        # not a multiple of a block's 256 rows
+NQ = 300        # not a multiple of a block's 256 or 512 rows
 NS = 3100
 
 
@@ -27,8 +32,9 @@ def edge_world(seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
     """(q int8 [NQ, DIM], s int8 [NS, DIM]), values in [-6, 6]:
 
     - rows 0-3 of q planted in s on both sides of a step edge (31/32), a
-      tile edge (63/64, 127/128) and far apart (1023/1024): equal scores
-      across an edge;
+      tile edge (63/64, 127/128) and far apart (1023/1024, also the edge of
+      two column ranges of the warpgroup-MMA route): equal scores across an
+      edge;
     - q[4] planted 11 times inside one tile (200-209, 230), q[5] 40 times
       in a row (400-439, more than a step holds): equal scores inside a
       tile and across steps;

@@ -10,15 +10,18 @@ and on the padding batch: the same tokens with the last 30% set to zero,
 as the engine pads a partial batch ("pad").
 
 1. Floors: copies of ``csrc/distance_topk.cu``, built with nvcc into a
-   temporary directory, whose epilogue is cut short: "mma" keeps only the
-   tensor-core producer and the cp.async ring, "epilogue" adds the common
-   path (row maxima, gate compares, one vote a step) but never merges.
-   They are timed in turns with K2 and K7 as built.  The floors' outputs
-   are not a top-k and are not compared; K2's and K7's equal the plain
-   version in every slot, or the script fails.
+   temporary directory, whose warpgroup-MMA K2 (the engine's shape) has
+   its epilogue cut short: "mma" keeps only the TMA ring and the wgmma
+   products, "epilogue" adds the common path (row maxima, gate compares,
+   one vote a step) but never merges.  They are timed in turns with K2
+   and K7 as built.  The floors' outputs are not a top-k and are not
+   compared; K2's and K7's equal the plain version in every slot, or the
+   script fails.
 2. ``--parent DIR``: another checkout (e.g. ``git archive`` of the parent
    commit, unpacked) timed against this one in separate processes, in
-   turns (parent, this, this, parent): K2, K7 and K6's b1 route.
+   turns (parent, this, this, parent): K2, K7, K6's b1 route, and K2 on
+   the mma.sync producer at dim 256 (the batch's rows twice over) and at
+   k 64 (2^14 rows).
 
 Prints one JSON line per measurement, beside the card's name and power
 limit.  Imports nothing of JAX.
@@ -36,18 +39,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# (anchor, replacement) edits of csrc/distance_topk.cu for each floor
+# (anchor, replacement) edits of csrc/distance_topk.cu's topk_kernel_wgmma
+# for each floor (its products are asm volatile, so they stay)
 _MMA_ONLY = [
-    ("  auto epi = [&](Acc& acc, int c0) {\n    bool pass = false;",
-     "  int sink = 0;\n  auto epi = [&](Acc& acc, int c0) {\n"
-     "    sink ^= acc[0][0][0] ^ acc[kMT - 1][kNT - 1][3];\n    if (c0 >= 0) return;\n"
-     "    bool pass = false;"),
-    ("  // the warp's rows are contiguous in the outputs\n",
-     "  if (sink == 0x5eed) vals[0] = 1.0f;\n  // the warp's rows are contiguous in the outputs\n"),
+    ("    unsigned mine = 0;", "    if (c0 >= 0) return;\n    unsigned mine = 0;"),
 ]
 _EPILOGUE_ONLY = [
-    ("    if (!__any_sync(kFull, pass)) return;",
-     "    if (!__any_sync(kFull, pass) || c0 >= 0) return;"),
+    ("    if (!need) return;", "    if (!need || c0 >= 0) return;"),
 ]
 FLOORS = {"mma": _MMA_ONLY, "epilogue": _EPILOGUE_ONLY}
 
@@ -89,7 +87,7 @@ def floors(works: int) -> dict:
     import chip_smoke as cs
     from fandom_search_tpu_torch.ops import _cuda
     from fandom_search_tpu_torch.ops.distance_topk import (
-        min_keep_int, topk_dot, topk_dot_plain,
+        min_keep_int, topk_dot, topk_dot_plain, wgmma_splits,
     )
 
     with tempfile.TemporaryDirectory() as t:
@@ -100,8 +98,8 @@ def floors(works: int) -> dict:
             out = proc.communicate()[0]
             if proc.returncode:
                 raise SystemExit(f"nvcc failed on floor {name}:\n{out}")
-            fn = ctypes.CDLL(str(d / "lib.so")).fs_topk
-            fn.argtypes = _cuda._SIGNATURES["fs_topk"]
+            fn = ctypes.CDLL(str(d / "lib.so")).fs_topk_wgmma
+            fn.argtypes = _cuda._SIGNATURES["fs_topk_wgmma"]
             fn.restype = ctypes.c_int
             libs[name] = fn
         engine, q, qp, torch = world(works)
@@ -112,11 +110,16 @@ def floors(works: int) -> dict:
         stream = torch.cuda.current_stream().cuda_stream
         batches = {"full": q, "pad": qp}
 
+        sms = _cuda.sm_count(q.device)
+
         def floor_call(fn, qq):
             v = torch.empty((qq.shape[0], k), dtype=torch.float32, device="cuda")
             i = torch.empty((qq.shape[0], k), dtype=torch.int32, device="cuda")
+            splits = wgmma_splits(qq.shape[0], ns, sms)
+            part = torch.empty((splits, qq.shape[0], k), dtype=torch.int64, device="cuda")
             rc = fn(qq.data_ptr(), s.data_ptr(), v.data_ptr(), i.data_ptr(), qq.shape[0], ns,
-                    cfg.shingle.dim, k, keep, 1.0 / cfg.shingle.dim, stream)
+                    cfg.shingle.dim, k, keep, 1.0 / cfg.shingle.dim, part.data_ptr(), splits,
+                    stream)
             _cuda.check(rc, "floor")
 
         calls = {
@@ -153,7 +156,7 @@ def one_tree(tree: Path, works: int) -> dict:
     if not Path(_cuda.__file__).resolve().is_relative_to(tree):
         raise SystemExit(f"loaded {_cuda.__file__}, not the package under {tree}")
     _cuda.build()
-    engine, q, qp, _ = world(works)
+    engine, q, qp, torch = world(works)
     cfg = engine.cfg
     s = engine._dix.s_emb
     ns, k, thr = s.shape[0], cfg.search.k, cfg.search.candidate_threshold
@@ -162,6 +165,9 @@ def one_tree(tree: Path, works: int) -> dict:
                          pad_multiple=cfg.search.script_pad_multiple, device="cuda")
     codes = encode(q, lsh.projection)
     keep = coarse_sim_threshold(thr, cfg.shingle.n, lcfg.bits)
+    # the mma.sync producer's shapes: dim 256 (each row twice over) and k 64
+    q2, s2 = torch.cat([q, q], 1), torch.cat([s, s], 1)
+    qs = q[: 1 << 14].contiguous()
     return {
         "K2": cs.cuda_ms(lambda: topk_dot(q, s, ns, k, min_keep=thr), 5),
         "K2_pad": cs.cuda_ms(lambda: topk_dot(qp, s, ns, k, min_keep=thr), 5),
@@ -169,6 +175,9 @@ def one_tree(tree: Path, works: int) -> dict:
         "K7_pad": cs.cuda_ms(lambda: topk_dot(qp, s, ns, k, min_keep=thr, merge="rows"), 5),
         "K6_b1": cs.cuda_ms(lambda: hamming_topk(codes, lsh.codes_t, lsh.ns_valid, lcfg.rerank,
                                                  lcfg.bits, min_keep_sim=keep, mma="b1"), 5),
+        "K2_dim256": cs.cuda_ms(lambda: topk_dot(q2, s2, ns, k, min_keep=thr), 5),
+        "K2_k64": cs.cuda_ms(lambda: topk_dot(qs, s, ns, 64, min_keep=thr), 5),
+        "K7_dim256": cs.cuda_ms(lambda: topk_dot(q2, s2, ns, k, min_keep=thr, merge="rows"), 5),
     }
 
 

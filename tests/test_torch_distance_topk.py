@@ -281,6 +281,7 @@ def test_wrapper_launches_any_dim_and_k(monkeypatch, dim, k, merge, min_keep, en
     monkeypatch.setattr(_cuda, "library", lambda: lib)
     monkeypatch.setattr(_cuda, "stream_ptr", lambda device: 0)
     monkeypatch.setattr(dt.topk_dot, "launches", 0)
+    monkeypatch.setattr(dt.topk_dot, "launches_wgmma", 0)
     monkeypatch.setattr(dt.topk_dot, "launches_rows", 0)
     q = torch.zeros((7, dim), dtype=torch.int8)
     s = torch.zeros((300, dim), dtype=torch.int8)
@@ -292,7 +293,104 @@ def test_wrapper_launches_any_dim_and_k(monkeypatch, dim, k, merge, min_keep, en
     assert args[4:10] == (7, 290, dim, k, dt.min_keep_int(min_keep, dim), 1.0 / dim)
     rows = entry == "fs_topk_rows"
     assert (dt.topk_dot.launches, dt.topk_dot.launches_rows) == (int(not rows), int(rows))
+    assert dt.topk_dot.launches_wgmma == 0
     with pytest.raises(ValueError, match="multiple of 128"):
         topk_dot(torch.zeros((7, 192), dtype=torch.int8),
                  torch.zeros((300, 192), dtype=torch.int8), 290, k)
     assert len(lib.calls) == 1
+
+
+# ---- K2's warpgroup-MMA route (csrc/distance_topk.cu)
+
+
+def _kernel_names(src: str) -> dict:
+    """{name: body} of every __global__ function in CUDA source ``src``."""
+    import re
+
+    out = {}
+    for m in re.finditer(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                         src):
+        out[m.group(1)] = m.start()
+    return out
+
+
+def test_k2_kernels_keep_topk_kernel_in_their_names():
+    """Every kernel that K2's entry points launch carries ``topk_kernel``
+    in its name: benchmark/harness/trace.py sums exactly those kernels'
+    device time into k2_roofline.sweep, so a helper under another name
+    would leave its time out and the roofline would read too high."""
+    import re
+    from pathlib import Path
+
+    from fandom_search_tpu_torch.ops import _cuda
+
+    src = (_cuda.CSRC / "distance_topk.cu").read_text()
+    kernels = _kernel_names(src)
+    assert {"topk_kernel", "topk_kernel_wgmma", "topk_kernel_merge"} <= set(kernels)
+    launched = set(re.findall(r"(\w+)(?:<[^<>;]*>)?<<<", src))
+    assert launched and launched <= set(kernels), launched
+    for name in kernels:
+        assert "topk_kernel" in name, name
+    # no other source of csrc/ defines a kernel that distance_topk.cu launches
+    for f in sorted(Path(_cuda.CSRC).glob("*.cu*")):
+        if f.name != "distance_topk.cu":
+            assert not launched & set(_kernel_names(f.read_text())), f.name
+
+
+@pytest.mark.parametrize("dim,k,route", [
+    (128, 1, True), (128, 10, True), (128, 32, True),
+    (128, 33, False), (128, 1000, False),
+    (256, 10, False), (512, 32, False), (1024, 1, False),
+])
+def test_wgmma_route_is_a_function_of_dim_and_k(monkeypatch, dim, k, route):
+    """The warpgroup-MMA route takes dim 128 and k <= 32 and nothing else,
+    whatever the rows, script rows, min_keep or merge name; the launch
+    passes fs_topk's arguments first, then the split buffer and count."""
+    from fandom_search_tpu_torch.ops import _cuda
+    from fandom_search_tpu_torch.ops import distance_topk as dt
+
+    assert dt.wgmma_route(dim, k) is route
+    monkeypatch.setattr(_cuda, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(_cuda, "sm_count", lambda device: 132)
+    for nq, ns, mk, merge in ((7, 290, 3.5, "insert"), (3000, 5000, -float("inf"), "rebuild"),
+                              (70_000, 0, 0.0, "rows")):
+        lib = _FakeLib()
+        monkeypatch.setattr(_cuda, "library", lambda: lib)
+        monkeypatch.setattr(dt.topk_dot, "launches", 0)
+        monkeypatch.setattr(dt.topk_dot, "launches_wgmma", 0)
+        monkeypatch.setattr(dt.topk_dot, "launches_rows", 0)
+        q = torch.zeros((nq, dim), dtype=torch.int8)
+        s = torch.zeros((max(ns, 1), dim), dtype=torch.int8)
+        topk_dot(q, s, ns, k, min_keep=mk, merge=merge)
+        (name, args), = lib.calls
+        assert name == ("fs_topk_wgmma" if route else "fs_topk")
+        assert args[4:10] == (nq, ns, dim, k, dt.min_keep_int(mk, dim), 1.0 / dim)
+        assert (dt.topk_dot.launches, dt.topk_dot.launches_wgmma) == (1, int(route))
+        if route:
+            splits = dt.wgmma_splits(nq, ns, 132)
+            assert args[11] == splits and (args[10] == 0) == (splits == 1)
+        else:
+            assert len(args) == 11
+
+
+@pytest.mark.parametrize("nq,ns,sms,want", [
+    (1 << 20, 1 << 20, 132, 1),   # series: 2,048 row blocks
+    (1 << 18, 1 << 22, 132, 1),   # the canon's at-risk rows: 512 row blocks
+    (2048, 1 << 20, 132, 33),     # serve-sized: 4 row blocks, one wave
+    (300, 3001, 132, 6),          # the edge world: 24 tiles, 4 a range
+    (300, 64, 132, 1),            # one tile
+    (300, 0, 132, 1),             # no script rows
+    (132 * 512, 1 << 20, 132, 1),
+    (131 * 512, 1 << 20, 132, 1),
+    (66 * 512, 1 << 20, 132, 2),
+])
+def test_wgmma_splits(nq, ns, sms, want):
+    """Column ranges fill one wave where the rows alone cannot, never
+    below WGMMA_MIN_SPLIT_TILES tiles a range."""
+    from fandom_search_tpu_torch.ops import distance_topk as dt
+
+    got = dt.wgmma_splits(nq, ns, sms)
+    assert got == want
+    row_blocks = -(-nq // dt.WGMMA_BLOCK_ROWS)
+    assert got == 1 or row_blocks * got <= sms

@@ -128,21 +128,24 @@ class _FakeLib:
 @pytest.mark.parametrize("merge,min_keep,entry", [
     ("rows", 3.5, "fs_topk_rows"),
     ("rows", 1.0 / DIM, "fs_topk_rows"),
-    ("rows", 0.0, "fs_topk"),
-    ("rows", -float("inf"), "fs_topk"),
-    ("insert", 3.5, "fs_topk"),
-    ("insertloop", 3.5, "fs_topk"),
-    ("rebuild", -float("inf"), "fs_topk"),
+    ("rows", 0.0, "fs_topk_wgmma"),
+    ("rows", -float("inf"), "fs_topk_wgmma"),
+    ("insert", 3.5, "fs_topk_wgmma"),
+    ("insertloop", 3.5, "fs_topk_wgmma"),
+    ("rebuild", -float("inf"), "fs_topk_wgmma"),
 ])
 def test_wrapper_routes_to_k7_or_k2(monkeypatch, merge, min_keep, entry):
     """On the kernel route, "rows" at min_keep >= 1/dim calls
-    fs_topk_rows and counts launches_rows; everything else calls fs_topk
-    and counts launches."""
+    fs_topk_rows and counts launches_rows; everything else runs K2 (at
+    dim 128 and k 10 on warpgroup MMA, fs_topk_wgmma) and counts
+    launches and launches_wgmma."""
     lib = _FakeLib()
     monkeypatch.setattr(_cuda, "on_cpu", lambda *t: False)
     monkeypatch.setattr(_cuda, "library", lambda: lib)
     monkeypatch.setattr(_cuda, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(_cuda, "sm_count", lambda device: 132)
     monkeypatch.setattr(dt.topk_dot, "launches", 0)
+    monkeypatch.setattr(dt.topk_dot, "launches_wgmma", 0)
     monkeypatch.setattr(dt.topk_dot, "launches_rows", 0)
     q = torch.zeros((5, DIM), dtype=torch.int8)
     s = torch.zeros((64, DIM), dtype=torch.int8)
@@ -153,6 +156,7 @@ def test_wrapper_routes_to_k7_or_k2(monkeypatch, merge, min_keep, entry):
     assert args[4:9] == (5, 60, DIM, K, dt.min_keep_int(min_keep, DIM))
     rows = entry == "fs_topk_rows"
     assert (dt.topk_dot.launches, dt.topk_dot.launches_rows) == (int(not rows), int(rows))
+    assert dt.topk_dot.launches_wgmma == int(not rows)
 
 
 # ---- the edge world of the tensor-core designs (utils/topk_cases.py)
