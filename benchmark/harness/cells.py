@@ -34,7 +34,9 @@ def _reports(metric: dict, cell: str) -> bool:
 
 def load_cell(name: str, bench_json: Path | None = None) -> Cell:
     """The cell ``name`` of ``BENCHMARK.json`` with its configuration,
-    traffic mix and the metrics it reports."""
+    traffic mix and the metrics it reports.  Refuses a cell whose
+    configuration's mesh (works x script, 1 without one) is not its
+    chips."""
     bench_json = Path(bench_json or ROOT / "BENCHMARK.json")
     spec = json.loads(bench_json.read_text())
     cells = {w["name"]: w for w in spec["workloads"]}
@@ -45,6 +47,11 @@ def load_cell(name: str, bench_json: Path | None = None) -> Cell:
     root = bench_json.parent
     bench_dir = root / spec["paths"][0]
     config = json.loads((root / conf["file"]).read_text())
+    mesh = config.get("pipeline", {}).get("mesh", {})
+    cards = int(mesh.get("works", 1)) * int(mesh.get("script", 1))
+    if cards != int(w["chips"]):
+        raise ValueError(f"cell {name!r} asks for {w['chips']} chip(s), and its configuration "
+                         f"{conf['name']!r} lays its mesh over {cards} card(s)")
     traffic = json.loads((bench_dir / "traffic" / f"{w['traffic']}.json").read_text())
     return Cell(
         name=name, bench_dir=bench_dir, chips=int(w["chips"]), config=config, traffic=traffic,

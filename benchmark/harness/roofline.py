@@ -35,7 +35,11 @@ def bound_s(nbytes: float, ops: float, ops_rate: float) -> float:
 
 def k2_bound_s(nq: int, ns: int, dim: int, k: int) -> float:
     """Distance top-k: NQ x NS int8 dots of width dim; the int8 rows of
-    both sides read once, k (score f32, index int32) a row written."""
+    both sides read once, k (score f32, index int32) a row written.  A
+    call that needs no row, or has no valid script row (a mesh's shard
+    past the script's end), needs no time."""
+    if not nq or not ns:
+        return 0.0
     return bound_s(nq * dim + ns * dim + nq * k * 8, 2.0 * nq * ns * dim, INT8_OPS_S)
 
 

@@ -141,7 +141,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
     spans = tr.Spans().__enter__() if trace else None
     try:
         engine = system.build_engine(script.text, cfg, device, phases)
-        devices = [engine.device]
+        devices = system.engine_devices(engine)
         t0 = time.perf_counter()
         pool = world.make_pool(seed, vocab, script, ranks, traffic)
         phases["pool"] = time.perf_counter() - t0
@@ -176,8 +176,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
         else:
             calls, window_s, kept = _window(engine, pool, seed, seconds, check_works, 1)
         forbidden_modules(raise_if_any=True)
-        peak = max((torch.cuda.max_memory_allocated(d) for d in devices if d.type == "cuda"),
-                   default=0)
+        peaks = [torch.cuda.max_memory_allocated(d) for d in devices if d.type == "cuda"]
+        peak = max(peaks, default=0)
         k2_rows, k4_counts = spans.counts() if spans else ([], [])
     finally:
         if spans:
@@ -188,7 +188,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
         + f" total={setup_s:.3f}s")
     log(f"window calls={len(calls)} words={words} seconds={window_s:.3f} pool_calls={len(pool)} "
         f"pool_wraps={wraps} rows={sum(c['rows'] for c in calls)} "
-        f"memory_peak={peak / MB:.1f}MiB")
+        f"memory_peak={peak / MB:.1f}MiB"
+        + (f" per_card={'/'.join(f'{b / MB:.1f}' for b in peaks)}MiB" if len(peaks) > 1 else ""))
     log(f"cards: {card_line() if device != 'cpu' else 'cpu'}")
 
     result = {"correct": False, "attempted": sum(c["works"] for c in calls), "failed": 0}

@@ -1,11 +1,15 @@
 """The system under test, built from a configuration file: the script
-index, the engine and its prefilter.  This module and ``trace.py`` (the traced run's spans) are
-the harness's only imports of the program."""
+index, the engine (over a works x script grid of cards where the
+configuration has a ``mesh`` section, as ``search --mesh WxS`` builds
+it) and its prefilter.  This module and ``trace.py`` (the traced run's
+spans) are the harness's only imports of the program."""
 
 from __future__ import annotations
 
 import time
-from typing import Dict
+from typing import Dict, List
+
+import torch
 
 from fandom_search_tpu_torch import config as pconfig
 from fandom_search_tpu_torch.data.script_parser import parse_script
@@ -14,7 +18,7 @@ from fandom_search_tpu_torch.search.index import build_script_index
 
 _SECTIONS = {
     "shingle": pconfig.ShingleConfig, "search": pconfig.SearchConfig,
-    "lsh": pconfig.LSHConfig, "bucketed": pconfig.BucketedConfig,
+    "lsh": pconfig.LSHConfig, "bucketed": pconfig.BucketedConfig, "mesh": pconfig.MeshConfig,
 }
 
 
@@ -44,13 +48,19 @@ def load_kernels(device: str) -> float:
 def build_engine(script_text: str, config: dict, device: str, phases: Dict[str, float]):
     """The engine over the index built from the script text, with the
     configuration's prefilter attached; ``phases`` gets each step's
-    seconds."""
+    seconds.  A mesh of more than one cell gives a
+    ``ShardedSearchEngine``, as the CLI's ``_build_engine`` chooses."""
     cfg = pipeline_config(config.get("pipeline", {}))
     t0 = time.perf_counter()
     index = build_script_index(parse_script(script_text), cfg.shingle, cfg.search)
     phases["index"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    engine = SearchEngine(index, cfg, device=device)
+    if cfg.mesh.num_devices > 1:
+        from fandom_search_tpu_torch.parallel.sharded import ShardedSearchEngine
+
+        engine = ShardedSearchEngine(index, cfg, device=device)
+    else:
+        engine = SearchEngine(index, cfg, device=device)
     phases["engine"] = time.perf_counter() - t0
     prefilter = config.get("prefilter")
     t0 = time.perf_counter()
@@ -64,3 +74,11 @@ def build_engine(script_text: str, config: dict, device: str, phases: Dict[str, 
         phases[f"{prefilter}_tables"] = time.perf_counter() - t0
     return engine
 
+
+def engine_devices(engine) -> List[torch.device]:
+    """The devices the engine runs on, the stream's first: its grid's
+    distinct devices in grid order, or its one device."""
+    mesh = getattr(engine, "mesh", None)
+    if mesh is None:
+        return [engine.device]
+    return list(dict.fromkeys(d for row in mesh.devices for d in row))

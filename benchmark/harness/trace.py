@@ -4,17 +4,22 @@ the profiler's Chrome trace to what the per-layer metrics read.
 With ``--trace 1`` the harness wraps, for the run only, the program
 functions that carry each layer (``Spans``): the distance top-k wrapper
 (K2) and the verify scorer (K4) get a ``record_function`` span each
-call that names its shapes, and the engine's host steps get ``host.*``
-spans.  Each K2 call keeps the query rows the algorithm needs, and each
-K4 call the DP cells and tokens its pairs' lengths need, on the device;
-they are read once the window has closed.  A batch needs the shingles of
+call that names its shapes, on one card and on each block of a mesh,
+the mesh's exchange and exact merge get ``bench.gather`` and
+``bench.merge``, and the engine's host steps get ``host.*`` spans.
+Each K2 call keeps the query rows the algorithm needs, and each K4 call
+the DP cells and tokens its pairs' lengths need, on the device; they are
+read once the window has closed.  A batch needs the shingles of
 its works (not the power-of-two padding of its stream, nor the shingles
 across two works), and on the bucketed hybrid those of them among the
 at-risk rerun's rows (not the -1 rows that pad them to the sticky
-budget, nor padding positions that probe an over-cap bucket).  A
-launch that reruns a batch after a budget overflow needs nothing more.  ``reduce_trace`` then finds
-each span's kernels through the correlation ids of the launches made
-inside it.
+budget, nor padding positions that probe an over-cap bucket).  On a
+mesh each block (works slice i x script shard j) needs the batch's work
+shingles inside works slice i, against shard j's valid rows, so the
+blocks' bounds add up to the one-card bound of the batch.  A launch that
+reruns a batch after a budget overflow needs nothing more.
+``reduce_trace`` then finds each span's kernels (and the exchange's
+copies) through the correlation ids of the launches made inside it.
 
 An H100 trace drops its first device events, more of them as a process
 ages (the port's ``scripts/torch_profiler_lead.py``).  ``lead`` launches
@@ -38,6 +43,7 @@ from torch.profiler import record_function
 from benchmark.harness.roofline import k2_bound_s, k4_bound_s, sw_packed
 
 WINDOW_SPAN = "bench.window"
+EXCHANGE_SPANS = ("bench.gather", "bench.merge")
 LEAD_KERNELS = 256
 PAD_S = 0.01
 _END = object()
@@ -53,6 +59,7 @@ class Spans:
         self._batch_rows = 0                   # the submitted batch's, until its K2 runs
         self._batch_spans = ([], [])           # its works' first and past-last shingle
         self._risk_rows = None
+        self._blocks = None                    # on a mesh: the rows of each block to launch
         self._undo: List[Tuple[object, str, object]] = []
 
     def _set(self, owner, name, value):
@@ -61,14 +68,23 @@ class Spans:
 
     def __enter__(self) -> "Spans":
         from fandom_search_tpu_torch.ops import bucketed, distance_topk, smith_waterman
+        from fandom_search_tpu_torch.parallel import sharded
         from fandom_search_tpu_torch.search import engine
 
         topk, sw = distance_topk.topk_dot, smith_waterman.sw_normalized
-        rerun = bucketed.exact_on_risk_rows
+        rerun, sharded_topk = bucketed.exact_on_risk_rows, sharded.sharded_topk
         rows, work = self.k2_rows, self.k4_work
 
+        def spanned(name, fn):
+            def call(*a, **kw):
+                with record_function(name):
+                    return fn(*a, **kw)
+            return call
+
         def k2(q, s, ns_valid, k, **kw):
-            if not self._batch_rows:
+            if self._blocks is not None:
+                rows.append(next(self._blocks))
+            elif not self._batch_rows:
                 rows.append(0)
             elif self._risk_rows is None:
                 rows.append(self._batch_rows)
@@ -85,6 +101,18 @@ class Spans:
             finally:
                 self._risk_rows = None
 
+        def blocks(mesh, q_slices, *a, **kw):
+            # the blocks launch in grid order, the cells this process owns
+            rows_l = next(q for q in q_slices if q is not None).shape[0]
+            need, self._batch_rows = self._batch_rows, 0
+            self._blocks = iter([self._needed_in(i * rows_l, (i + 1) * rows_l) if need else 0
+                                 for i, row in enumerate(mesh.devices)
+                                 for j in range(len(row)) if mesh.local(i, j)])
+            try:
+                return sharded_topk(mesh, q_slices, *a, **kw)
+            finally:
+                self._blocks = None
+
         def k4(a, b, len_a, len_b, cfg):
             na = len_a.long().clamp(0, a.shape[1])
             nb = len_b.long().clamp(0, b.shape[1])
@@ -97,6 +125,11 @@ class Spans:
         self._set(bucketed, "topk_dot", k2)
         self._set(bucketed, "exact_on_risk_rows", risk)
         self._set(engine, "sw_normalized", k4)
+        self._set(sharded, "sharded_topk", blocks)
+        self._set(sharded, "topk_dot", k2)
+        self._set(sharded, "sw_normalized", k4)
+        self._set(sharded, "merge_topk", spanned("bench.merge", sharded.merge_topk))
+        self._set(sharded, "gather", spanned("bench.gather", sharded.gather))
 
         cls = engine.SearchEngine
         batches, process, submit = cls._batches, cls._process_fused, cls._submit_fused
@@ -118,12 +151,6 @@ class Spans:
             with record_function("host.submit"):
                 return submit(self_, payload, nspans, spans, *a, **kw)
 
-        def spanned(name, fn):
-            def call(*a, **kw):
-                with record_function(name):
-                    return fn(*a, **kw)
-            return call
-
         self._set(cls, "_batches", traced_batches)
         self._set(cls, "_process_fused", spanned("host.pull_post", process))
         self._set(cls, "_submit_fused", traced_submit)
@@ -144,6 +171,11 @@ class Spans:
         p = pos.long()
         i = (torch.searchsorted(starts, p, right=True) - 1).clamp(min=0)
         return ((p >= starts[i]) & (p < ends[i])).sum()
+
+    def _needed_in(self, lo: int, hi: int) -> int:
+        """How many of the stream positions ``lo`` to ``hi`` start a
+        shingle inside one work of the submitted batch."""
+        return sum(max(0, min(e, hi) - max(s, lo)) for s, e in zip(*self._batch_spans))
 
     def counts(self) -> Tuple[List[int], List[Tuple[int, int]]]:
         """The query rows of each K2 call, and (cells, tokens) of each
@@ -172,6 +204,8 @@ class TraceSummary:
     gaps: Dict[str, float]                       # host span -> idle seconds, mean over devices
     k2: List[Tuple[float, float]] = field(default_factory=list)   # (bound s, kernel s)
     k4: List[Tuple[float, float]] = field(default_factory=list)
+    # the stream's card's seconds in the mesh's exchange and merge (None: no such span)
+    exchange_s: float | None = None
 
     @property
     def devices(self) -> int:
@@ -200,28 +234,46 @@ def _union(intervals):
     return out
 
 
-def _span_kernels(spans, runtime_by_tid, kernels_by_corr, pattern: str):
+def _launched(span, runtime_by_tid, by_corr):
+    """The device events whose launches fall inside the host span."""
+    t0, t1 = float(span["ts"]), float(span["ts"]) + float(span["dur"])
+    ts, evs = runtime_by_tid.get(span.get("tid"), ([], []))
+    for e in evs[bisect.bisect_left(ts, t0):bisect.bisect_right(ts, t1)]:
+        yield from by_corr.get(e.get("args", {}).get("correlation"), ())
+
+
+def _span_kernels(spans, runtime_by_tid, by_corr, pattern: str):
     """Per span, the summed duration (us) of the kernels named like
     ``pattern`` whose launches fall inside it; None where none landed."""
     out = []
     for s in spans:
-        t0, t1 = float(s["ts"]), float(s["ts"]) + float(s["dur"])
-        ts, evs = runtime_by_tid.get(s.get("tid"), ([], []))
-        dur, found = 0.0, False
-        for e in evs[bisect.bisect_left(ts, t0):bisect.bisect_right(ts, t1)]:
-            for k in kernels_by_corr.get(e.get("args", {}).get("correlation"), ()):
-                if pattern in k["name"]:
-                    dur += float(k["dur"])
-                    found = True
-        out.append(dur if found else None)
+        found = [float(k["dur"]) for k in _launched(s, runtime_by_tid, by_corr)
+                 if k.get("cat") == "kernel" and pattern in k["name"]]
+        out.append(sum(found) if found else None)
     return out
+
+
+def _card(event) -> int:
+    """The card whose stream ran a device event: a peer copy names it
+    ``inDevice`` (its source), every other event ``device``."""
+    args = event.get("args", {})
+    return int(args.get("device", args.get("inDevice", 0)))
+
+
+def _on_card(event, card: int) -> bool:
+    """Whether a device event ran on ``card`` or, as a peer copy, landed
+    there."""
+    return card in (_card(event), event.get("args", {}).get("toDevice"))
 
 
 def reduce_trace(path: Path, devices: List[int], k2_rows: List[int],
                  k4_counts: List[Tuple[int, int]]) -> TraceSummary:
     """The traced window's busy time per device, its device ops by name,
     its idle gaps by the host span they fell in, and each K2 and K4
-    call's bound beside its kernel time."""
+    call's bound beside its kernel time.  ``devices`` lists the cards'
+    indices, the stream's first: its ``exchange_s`` is the device time
+    of the kernels and copies launched inside the ``bench.gather`` and
+    ``bench.merge`` spans that ran on it or landed there."""
     events = json.loads(Path(path).read_text(encoding="utf-8")).get("traceEvents", [])
     ann = [e for e in events if e.get("cat") == "user_annotation" and "dur" in e]
     win = [e for e in ann if e.get("name") == WINDOW_SPAN]
@@ -234,7 +286,7 @@ def reduce_trace(path: Path, devices: List[int], k2_rows: List[int],
     for e in dev_events:
         a, b = max(w0, float(e["ts"])), min(w1, float(e["ts"]) + float(e["dur"]))
         if b > a:
-            per_dev[int(e.get("args", {}).get("device", 0))].append((a, b))
+            per_dev[_card(e)].append((a, b))
             ops[e["name"]] += (b - a) / 1e6
     host = sorted(((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in ann
                    if e["name"].startswith("host.")), key=lambda x: x[0])
@@ -261,10 +313,10 @@ def reduce_trace(path: Path, devices: List[int], k2_rows: List[int],
     for tid, evs in runtime.items():
         evs.sort(key=lambda e: float(e["ts"]))
         runtime_by_tid[tid] = ([float(e["ts"]) for e in evs], evs)
-    kernels_by_corr = defaultdict(list)
+    by_corr = defaultdict(list)
     for e in dev_events:
-        if e.get("cat") == "kernel" and w0 <= float(e["ts"]) <= w1:
-            kernels_by_corr[e.get("args", {}).get("correlation")].append(e)
+        if w0 <= float(e["ts"]) <= w1:
+            by_corr[e.get("args", {}).get("correlation")].append(e)
 
     def calls(prefix):
         spans = [e for e in ann if e["name"].startswith(prefix) and w0 <= float(e["ts"]) <= w1]
@@ -272,16 +324,20 @@ def reduce_trace(path: Path, devices: List[int], k2_rows: List[int],
 
     summary = TraceSummary((w1 - w0) / 1e6, busy, dict(ops), dict(gaps))
     spans, shapes = calls("bench.k2|")
-    for us, (i, ns, dim, k) in zip(_span_kernels(spans, runtime_by_tid, kernels_by_corr,
+    for us, (i, ns, dim, k) in zip(_span_kernels(spans, runtime_by_tid, by_corr,
                                                  "topk_kernel"), shapes):
         if us:
             nq = k2_rows[int(i)]
-            bound = k2_bound_s(nq, int(ns), int(dim), int(k)) if nq else 0.0
-            summary.k2.append((bound, us / 1e6))
+            summary.k2.append((k2_bound_s(nq, int(ns), int(dim), int(k)), us / 1e6))
     spans, shapes = calls("bench.k4|")
-    for us, (i, pairs, packed) in zip(_span_kernels(spans, runtime_by_tid, kernels_by_corr,
+    for us, (i, pairs, packed) in zip(_span_kernels(spans, runtime_by_tid, by_corr,
                                                     "sw_kernel"), shapes):
         if us:
             cells, tokens = k4_counts[int(i)]
             summary.k4.append((k4_bound_s(cells, tokens, int(pairs), packed == "1"), us / 1e6))
+    exchange = [e for e in ann if e["name"] in EXCHANGE_SPANS and w0 <= float(e["ts"]) <= w1]
+    if exchange and devices:
+        summary.exchange_s = sum(float(k["dur"]) for s in exchange
+                                 for k in _launched(s, runtime_by_tid, by_corr)
+                                 if _on_card(k, devices[0])) / 1e6
     return summary

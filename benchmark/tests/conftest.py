@@ -25,14 +25,15 @@ def pytest_configure(config):
     config.addinivalue_line("markers", "card: needs a CUDA device (skips without one)")
 
 
-def add_tiny_cell(dst: Path, *, prefilter=None, mix="corpus", works=16) -> Path:
+def add_tiny_cell(dst: Path, *, prefilter=None, mix="corpus", works=16, mesh=None) -> Path:
     """Copy BENCHMARK.json and benchmark/ to ``dst`` and add the cell
     ``tiny.tiny`` by files alone: ``configs/tiny.json`` (the series
     configuration at 4,000 shingles and a 2^14 batch), ``traffic/tiny.json``
     (``mix`` at 16 short works a call).  The cell reports the per-layer
-    metrics of the real cell on its path (``series.corpus``, or
-    ``canon_bucketed.corpus`` with the bucketed prefilter).  Returns the
-    copy's BENCHMARK.json."""
+    metrics of the real cell on its path (``series.corpus``,
+    ``canon_bucketed.corpus`` with the bucketed prefilter, or
+    ``canon_mesh.corpus`` with a ``mesh`` of (works, script) cards, which
+    the cell asks for as its chips).  Returns the copy's BENCHMARK.json."""
     shutil.copytree(ROOT / "benchmark", dst / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -42,6 +43,8 @@ def add_tiny_cell(dst: Path, *, prefilter=None, mix="corpus", works=16) -> Path:
     if prefilter:
         cfg["prefilter"] = prefilter
         cfg["pipeline"]["bucketed"] = {"pairs": "all"}
+    if mesh:
+        cfg["pipeline"]["mesh"] = {"works": mesh[0], "script": mesh[1]}
     (dst / "benchmark" / "configs" / "tiny.json").write_text(json.dumps(cfg))
     traffic = json.loads((ROOT / "benchmark" / "traffic" / f"{mix}.json").read_text())
     traffic.update(works_per_call=works, pool_calls=2, check_works=4,
@@ -49,9 +52,10 @@ def add_tiny_cell(dst: Path, *, prefilter=None, mix="corpus", works=16) -> Path:
     (dst / "benchmark" / "traffic" / "tiny.json").write_text(json.dumps(traffic))
     spec["configs"].append({"name": "tiny", "source": "a test", "file": "benchmark/configs/tiny.json",
                             "reduced": ["script"], "why": "a test"})
-    spec["workloads"].append({"name": TINY_CELL, "config": "tiny", "traffic": "tiny", "chips": 1,
-                              "why": "a test"})
-    like = "canon_bucketed.corpus" if prefilter else "series.corpus"
+    spec["workloads"].append({"name": TINY_CELL, "config": "tiny", "traffic": "tiny",
+                              "chips": mesh[0] * mesh[1] if mesh else 1, "why": "a test"})
+    like = ("canon_mesh.corpus" if mesh else "canon_bucketed.corpus" if prefilter
+            else "series.corpus")
     for m in spec["per_layer"]:
         if like in m["workloads"]:
             m["workloads"].append(TINY_CELL)

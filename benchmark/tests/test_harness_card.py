@@ -1,11 +1,12 @@
 """On the card: the tiny cell end to end, traced, with its rooflines
-read from the device trace.  Skips without a CUDA device."""
+read from the device trace, and the tiny mesh cell on four cards.
+Skips without the cards."""
 
 import pytest
 import torch
 
 from benchmark.harness import runner
-from conftest import TINY_CELL
+from conftest import TINY_CELL, add_tiny_cell
 
 
 @pytest.mark.card
@@ -18,3 +19,16 @@ def test_tiny_cell_traced_on_the_card(tiny_bench):
     assert 0 < m["k2_roofline.sweep"] <= 105 and 0 < m["k4_roofline.sweep"] <= 105
     assert 0 <= m["device.idle_share.sweep"] < 100
     assert r["device"]["platform"] == "gpu" and r["device"]["busy_s"] > 0
+
+
+@pytest.mark.card
+def test_tiny_mesh_cell_traced_on_four_cards(tmp_path):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    bench_json = add_tiny_cell(tmp_path, mesh=(2, 2))
+    r = runner.run(TINY_CELL, 2**31 + 9, 1.0, True, device="cuda", bench_json=bench_json)
+    assert r["correct"], r["checks"]
+    m = {k: v["value"] for k, v in r["metrics"].items()}
+    assert 0 < m["k2_roofline.sweep"] <= 105
+    assert m["mesh_straggler.sweep"] >= 0 and m["mesh_merge_share.sweep"] > 0
+    assert r["device"]["count"] == 4 and r["device"]["busy_s"] > 0

@@ -1,7 +1,8 @@
 """The comparison that decides ``correct`` has to fail: the control (the
 reference in bfloat16 in the program's place) and a run whose timed path
-is broken underneath, once for each fault the cells can have (one card:
-no exchange between chips to leave out)."""
+is broken underneath, once for each fault the cells can have, on one card
+and on a 2 x 2 mesh (the mesh's exchange left out:
+``test_harness_mesh.py``)."""
 
 import pytest
 
@@ -12,6 +13,11 @@ from conftest import TINY_CELL, add_tiny_cell
 
 def _checks(result):
     return {k: v["value"] for k, v in result["checks"].items()}
+
+
+@pytest.fixture(params=[None, (2, 2)], ids=["one_card", "mesh"])
+def fault_bench(tmp_path, request):
+    return add_tiny_cell(tmp_path, mesh=request.param)
 
 
 @pytest.mark.parametrize("seed", [3, 2**31 + 17, 4_000_000_001])
@@ -43,7 +49,7 @@ def test_sound_run_is_correct(tiny_bench):
     assert r["correct"] and _checks(r) == {"rows_missing": 0, "rows_extra": 0}
 
 
-def test_half_the_works_left_out(tiny_bench, monkeypatch):
+def test_half_the_works_left_out(fault_bench, monkeypatch):
     from fandom_search_tpu_torch.search.engine import SearchEngine
 
     search = SearchEngine.search_works
@@ -53,11 +59,11 @@ def test_half_the_works_left_out(tiny_bench, monkeypatch):
         return search(self, keep)
 
     monkeypatch.setattr(SearchEngine, "search_works", half)
-    r = runner.run(TINY_CELL, 11, 0.1, False, device="cpu", bench_json=tiny_bench)
+    r = runner.run(TINY_CELL, 11, 0.1, False, device="cpu", bench_json=fault_bench)
     assert not r["correct"] and _checks(r)["rows_missing"] > 0
 
 
-def test_answer_altered_where_produced(tiny_bench, monkeypatch):
+def test_answer_altered_where_produced(fault_bench, monkeypatch):
     """The fused step's verify scores nudged on the device."""
     from fandom_search_tpu_torch.search import engine
 
@@ -69,7 +75,7 @@ def test_answer_altered_where_produced(tiny_bench, monkeypatch):
         return out
 
     monkeypatch.setattr(engine, "fused_tail", altered)
-    r = runner.run(TINY_CELL, 11, 0.1, False, device="cpu", bench_json=tiny_bench)
+    r = runner.run(TINY_CELL, 11, 0.1, False, device="cpu", bench_json=fault_bench)
     c = _checks(r)
     assert not r["correct"] and c["rows_missing"] > 0 and c["rows_extra"] > 0
 

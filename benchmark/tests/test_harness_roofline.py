@@ -14,6 +14,8 @@ def test_k2_counts_by_hand():
     ops = 2.0 * 2**20 * 2**20 * 128
     assert R.k2_bound_s(2**20, 2**20, 128, 10) == pytest.approx(ops / 1.979e15)
     assert 0.142 < R.k2_bound_s(2**20, 2**20, 128, 10) < 0.143
+    # no row needed, or a mesh's shard past the script's end: no time
+    assert R.k2_bound_s(0, 3, 128, 2) == 0.0 == R.k2_bound_s(4, 0, 128, 2)
 
 
 def test_k4_counts_by_hand():
