@@ -13,6 +13,13 @@ from __future__ import annotations
 # operations/s (two a multiply-add)
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1.979e15
+# 1-bit tensor-core operations/s (an AND and a popcount-add a bit pair).
+# NVIDIA publishes no Hopper rate for the b1 mma; this is A100's published
+# ratio, 4,992 binary against 624 int8 TOPS dense (8x: one m16n8k256 b1
+# mma does the bit pairs of eight m16n8k32 s8 ones), applied to the H100's
+# int8 peak.  It is taken as a ceiling: if Hopper's real 1-bit rate is
+# lower, a share of it is understated, and never reads past 100%.
+B1_OPS_S = 8 * INT8_OPS_S
 # CUDA cores, compute capability 9.0 (CUDA C++ Programming Guide,
 # "Throughput of Native Arithmetic Instructions"): 64 32-bit integer,
 # compare, minimum and maximum results a clock an SM, on 132 SMs at the
@@ -41,6 +48,18 @@ def k2_bound_s(nq: int, ns: int, dim: int, k: int) -> float:
     if not nq or not ns:
         return 0.0
     return bound_s(nq * dim + ns * dim + nq * k * 8, 2.0 * nq * ns * dim, INT8_OPS_S)
+
+
+def k6_bound_s(nq: int, ns: int, bits: int, r: int) -> float:
+    """Hamming top-R: NQ x NS code pairs of ``bits`` bits, an AND and a
+    popcount-add a bit pair at the 1-bit rate (the least work of any
+    route, whatever product implements it); the packed codes of both
+    sides (bits / 8 bytes a row) read once, R (similarity f32, column
+    int32) a row written.  A call that needs no row, or has no valid
+    script column, needs no time."""
+    if not nq or not ns:
+        return 0.0
+    return bound_s((nq + ns) * bits / 8 + nq * r * 8, 2.0 * nq * ns * bits, B1_OPS_S)
 
 
 def sw_packed(match: float, mismatch: float, gap: float, la: int, lb: int) -> bool:

@@ -179,6 +179,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
         peaks = [torch.cuda.max_memory_allocated(d) for d in devices if d.type == "cuda"]
         peak = max(peaks, default=0)
         k2_rows, k4_counts = spans.counts() if spans else ([], [])
+        k6_rows = spans.k6_rows if spans else []
     finally:
         if spans:
             spans.__exit__(None, None, None)
@@ -199,7 +200,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
             path = Path(tmp) / "trace.json"
             prof.export_chrome_trace(str(path))
             idx = [d.index or 0 for d in devices] if device != "cpu" else []
-            summary = tr.reduce_trace(path, idx, k2_rows, k4_counts)
+            summary = tr.reduce_trace(path, idx, k2_rows, k4_counts, k6_rows)
         ctx = Context(cell, window_s, calls, summary)
         readers = cells.metric_readers([m["name"] for m in cell.per_layer], bench_dir)
         metrics = {}

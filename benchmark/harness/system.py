@@ -1,8 +1,10 @@
 """The system under test, built from a configuration file: the script
 index, the engine (over a works x script grid of cards where the
 configuration has a ``mesh`` section, as ``search --mesh WxS`` builds
-it) and its prefilter.  This module and ``trace.py`` (the traced run's
-spans) are the harness's only imports of the program."""
+it) and its prefilter (``"prefilter": "bucketed"`` or ``"lsh"``, as
+``search --bucketed`` and ``search --lsh`` attach them).  This module
+and ``trace.py`` (the traced run's spans) are the harness's only imports
+of the program."""
 
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import torch
 
 from fandom_search_tpu_torch import config as pconfig
 from fandom_search_tpu_torch.data.script_parser import parse_script
+from fandom_search_tpu_torch.ops.bucketed import attach_bucketed_prefilter
+from fandom_search_tpu_torch.ops.lsh import attach_lsh_prefilter
 from fandom_search_tpu_torch.search.engine import SearchEngine
 from fandom_search_tpu_torch.search.index import build_script_index
 
@@ -20,6 +24,9 @@ _SECTIONS = {
     "shingle": pconfig.ShingleConfig, "search": pconfig.SearchConfig,
     "lsh": pconfig.LSHConfig, "bucketed": pconfig.BucketedConfig, "mesh": pconfig.MeshConfig,
 }
+# prefilter name -> its attach, called with the pipeline section of the
+# same name and no prebuilt tables, so that set-up builds them
+_PREFILTERS = {"bucketed": attach_bucketed_prefilter, "lsh": attach_lsh_prefilter}
 
 
 def pipeline_config(pipeline: dict) -> pconfig.PipelineConfig:
@@ -63,14 +70,11 @@ def build_engine(script_text: str, config: dict, device: str, phases: Dict[str, 
         engine = SearchEngine(index, cfg, device=device)
     phases["engine"] = time.perf_counter() - t0
     prefilter = config.get("prefilter")
-    t0 = time.perf_counter()
-    if prefilter == "bucketed":
-        from fandom_search_tpu_torch.ops.bucketed import attach_bucketed_prefilter
-
-        attach_bucketed_prefilter(engine, cfg.bucketed)
-    elif prefilter is not None:
-        raise ValueError(f"unknown prefilter {prefilter!r}")
-    if prefilter:
+    if prefilter is not None:
+        if prefilter not in _PREFILTERS:
+            raise ValueError(f"unknown prefilter {prefilter!r}; have {sorted(_PREFILTERS)}")
+        t0 = time.perf_counter()
+        _PREFILTERS[prefilter](engine, getattr(cfg, prefilter))
         phases[f"{prefilter}_tables"] = time.perf_counter() - t0
     return engine
 

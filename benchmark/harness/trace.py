@@ -3,21 +3,22 @@ the profiler's Chrome trace to what the per-layer metrics read.
 
 With ``--trace 1`` the harness wraps, for the run only, the program
 functions that carry each layer (``Spans``): the distance top-k wrapper
-(K2) and the verify scorer (K4) get a ``record_function`` span each
-call that names its shapes, on one card and on each block of a mesh,
-the mesh's exchange and exact merge get ``bench.gather`` and
-``bench.merge``, and the engine's host steps get ``host.*`` spans.
-Each K2 call keeps the query rows the algorithm needs, and each K4 call
-the DP cells and tokens its pairs' lengths need, on the device; they are
-read once the window has closed.  A batch needs the shingles of
-its works (not the power-of-two padding of its stream, nor the shingles
-across two works), and on the bucketed hybrid those of them among the
-at-risk rerun's rows (not the -1 rows that pad them to the sticky
-budget, nor padding positions that probe an over-cap bucket).  On a
-mesh each block (works slice i x script shard j) needs the batch's work
-shingles inside works slice i, against shard j's valid rows, so the
-blocks' bounds add up to the one-card bound of the batch.  A launch that
-reruns a batch after a budget overflow needs nothing more.
+(K2), the LSH prefilter's Hamming top-R (K6) and the verify scorer (K4)
+get a ``record_function`` span each call that names its shapes, on one
+card and on each block of a mesh, the mesh's exchange and exact merge
+get ``bench.gather`` and ``bench.merge``, and the engine's host steps
+get ``host.*`` spans.  Each K2 and K6 call keeps the query rows the
+algorithm needs, and each K4 call the DP cells and tokens its pairs'
+lengths need; what is counted on the device is read once the window has
+closed.  A batch needs the shingles of its works (not the power-of-two
+padding of its stream, nor the shingles across two works), and on the
+bucketed hybrid those of them among the at-risk rerun's rows (not the -1
+rows that pad them to the sticky budget, nor padding positions that
+probe an over-cap bucket).  On a mesh each block (works slice i x
+script shard j) needs the batch's work shingles inside works slice i,
+against shard j's valid rows, so the blocks' bounds add up to the
+one-card bound of the batch.  A launch that reruns a batch after a
+budget overflow needs nothing more.
 ``reduce_trace`` then finds each span's kernels (and the exchange's
 copies) through the correlation ids of the launches made inside it.
 
@@ -40,7 +41,7 @@ from typing import Dict, List, Tuple
 import torch
 from torch.profiler import record_function
 
-from benchmark.harness.roofline import k2_bound_s, k4_bound_s, sw_packed
+from benchmark.harness.roofline import k2_bound_s, k4_bound_s, k6_bound_s, sw_packed
 
 WINDOW_SPAN = "bench.window"
 EXCHANGE_SPANS = ("bench.gather", "bench.merge")
@@ -56,7 +57,8 @@ class Spans:
     def __init__(self):
         self.k2_rows: List[object] = []        # int or a device scalar, per K2 call
         self.k4_work: List[torch.Tensor] = []
-        self._batch_rows = 0                   # the submitted batch's, until its K2 runs
+        self.k6_rows: List[int] = []
+        self._batch_rows = 0                   # the submitted batch's, until its K2 or K6 runs
         self._batch_spans = ([], [])           # its works' first and past-last shingle
         self._risk_rows = None
         self._blocks = None                    # on a mesh: the rows of each block to launch
@@ -67,11 +69,11 @@ class Spans:
         setattr(owner, name, value)
 
     def __enter__(self) -> "Spans":
-        from fandom_search_tpu_torch.ops import bucketed, distance_topk, smith_waterman
+        from fandom_search_tpu_torch.ops import bucketed, distance_topk, lsh, smith_waterman
         from fandom_search_tpu_torch.parallel import sharded
         from fandom_search_tpu_torch.search import engine
 
-        topk, sw = distance_topk.topk_dot, smith_waterman.sw_normalized
+        topk, sw, hamming = distance_topk.topk_dot, smith_waterman.sw_normalized, lsh.hamming_topk
         rerun, sharded_topk = bucketed.exact_on_risk_rows, sharded.sharded_topk
         rows, work = self.k2_rows, self.k4_work
 
@@ -93,6 +95,19 @@ class Spans:
             self._batch_rows = 0
             with record_function(f"bench.k2|{len(rows) - 1}|{int(ns_valid)}|{q.shape[1]}|{k}"):
                 return topk(q, s, ns_valid, k, **kw)
+
+        def k6(q_codes, codes_t, ns_valid, rerank, bits, **kw):
+            self.k6_rows.append(self._batch_rows)
+            self._batch_rows = 0
+            name = f"bench.k6|{len(self.k6_rows) - 1}|{int(ns_valid)}|{bits}|{rerank}"
+            with record_function(name):
+                out = hamming(q_codes, codes_t, ns_valid, rerank, bits, **kw)
+            # hamming_topk counts its launches on its module name, which
+            # is this wrapper while it is installed
+            hamming.launches = k6.launches
+            return out
+
+        k6.launches = hamming.launches
 
         def risk(q_emb, risk_rows, *a, **kw):
             self._risk_rows = risk_rows
@@ -125,6 +140,7 @@ class Spans:
         self._set(bucketed, "topk_dot", k2)
         self._set(bucketed, "exact_on_risk_rows", risk)
         self._set(engine, "sw_normalized", k4)
+        self._set(lsh, "hamming_topk", k6)
         self._set(sharded, "sharded_topk", blocks)
         self._set(sharded, "topk_dot", k2)
         self._set(sharded, "sw_normalized", k4)
@@ -204,6 +220,7 @@ class TraceSummary:
     gaps: Dict[str, float]                       # host span -> idle seconds, mean over devices
     k2: List[Tuple[float, float]] = field(default_factory=list)   # (bound s, kernel s)
     k4: List[Tuple[float, float]] = field(default_factory=list)
+    k6: List[Tuple[float, float]] = field(default_factory=list)
     # the stream's card's seconds in the mesh's exchange and merge (None: no such span)
     exchange_s: float | None = None
 
@@ -267,9 +284,9 @@ def _on_card(event, card: int) -> bool:
 
 
 def reduce_trace(path: Path, devices: List[int], k2_rows: List[int],
-                 k4_counts: List[Tuple[int, int]]) -> TraceSummary:
+                 k4_counts: List[Tuple[int, int]], k6_rows: List[int] = ()) -> TraceSummary:
     """The traced window's busy time per device, its device ops by name,
-    its idle gaps by the host span they fell in, and each K2 and K4
+    its idle gaps by the host span they fell in, and each K2, K4 and K6
     call's bound beside its kernel time.  ``devices`` lists the cards'
     indices, the stream's first: its ``exchange_s`` is the device time
     of the kernels and copies launched inside the ``bench.gather`` and
@@ -335,6 +352,12 @@ def reduce_trace(path: Path, devices: List[int], k2_rows: List[int],
         if us:
             cells, tokens = k4_counts[int(i)]
             summary.k4.append((k4_bound_s(cells, tokens, int(pairs), packed == "1"), us / 1e6))
+    spans, shapes = calls("bench.k6|")
+    for us, (i, ns, bits, r) in zip(_span_kernels(spans, runtime_by_tid, by_corr,
+                                                  "hamming_topk_tc"), shapes):
+        if us:
+            summary.k6.append((k6_bound_s(k6_rows[int(i)], int(ns), int(bits), int(r)),
+                               us / 1e6))
     exchange = [e for e in ann if e["name"] in EXCHANGE_SPANS and w0 <= float(e["ts"]) <= w1]
     if exchange and devices:
         summary.exchange_s = sum(float(k["dur"]) for s in exchange

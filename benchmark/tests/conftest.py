@@ -19,6 +19,10 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 TINY_CELL = "tiny.tiny"
+# the tiny cell's pipeline section of each prefilter: the hybrid, and the
+# LSH prefilter at LSHConfig's matched-recall defaults
+PREFILTER_SECTIONS = {"bucketed": {"pairs": "all"},
+                      "lsh": {"bits": 1024, "rerank": 256, "seed": 0xB175}}
 
 
 def pytest_configure(config):
@@ -33,7 +37,9 @@ def add_tiny_cell(dst: Path, *, prefilter=None, mix="corpus", works=16, mesh=Non
     metrics of the real cell on its path (``series.corpus``,
     ``canon_bucketed.corpus`` with the bucketed prefilter, or
     ``canon_mesh.corpus`` with a ``mesh`` of (works, script) cards, which
-    the cell asks for as its chips).  Returns the copy's BENCHMARK.json."""
+    the cell asks for as its chips); with the LSH prefilter, which runs
+    no K2, those of ``series.corpus`` but K2's roofline.  Returns the
+    copy's BENCHMARK.json."""
     shutil.copytree(ROOT / "benchmark", dst / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -42,7 +48,7 @@ def add_tiny_cell(dst: Path, *, prefilter=None, mix="corpus", works=16, mesh=Non
     cfg["pipeline"]["search"]["batch_queries"] = 1 << 14
     if prefilter:
         cfg["prefilter"] = prefilter
-        cfg["pipeline"]["bucketed"] = {"pairs": "all"}
+        cfg["pipeline"][prefilter] = PREFILTER_SECTIONS[prefilter]
     if mesh:
         cfg["pipeline"]["mesh"] = {"works": mesh[0], "script": mesh[1]}
     (dst / "benchmark" / "configs" / "tiny.json").write_text(json.dumps(cfg))
@@ -54,10 +60,10 @@ def add_tiny_cell(dst: Path, *, prefilter=None, mix="corpus", works=16, mesh=Non
                             "reduced": ["script"], "why": "a test"})
     spec["workloads"].append({"name": TINY_CELL, "config": "tiny", "traffic": "tiny",
                               "chips": mesh[0] * mesh[1] if mesh else 1, "why": "a test"})
-    like = ("canon_mesh.corpus" if mesh else "canon_bucketed.corpus" if prefilter
+    like = ("canon_mesh.corpus" if mesh else "canon_bucketed.corpus" if prefilter == "bucketed"
             else "series.corpus")
     for m in spec["per_layer"]:
-        if like in m["workloads"]:
+        if like in m["workloads"] and not (prefilter == "lsh" and m["name"].startswith("k2_")):
             m["workloads"].append(TINY_CELL)
     (dst / "BENCHMARK.json").write_text(json.dumps(spec))
     return dst / "BENCHMARK.json"
