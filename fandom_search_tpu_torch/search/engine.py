@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from fandom_search_tpu_torch.config import PipelineConfig, SearchConfig, ShingleConfig
-from fandom_search_tpu_torch.data.fast_tokenizer import tokenize_many
+from fandom_search_tpu_torch.data.fast_tokenizer import fast_tokenize, get_lib
 from fandom_search_tpu_torch.data.hashing import derive_sign_mults
 from fandom_search_tpu_torch.data.tokenizer import Tokenized
 from fandom_search_tpu_torch.ops.distance_topk import topk_dot
@@ -65,6 +65,34 @@ class EngineStats:
     def shingle_pairs(self) -> int:
         """Query-shingle x script-shingle pairs scored."""
         return self.num_query_shingles * int(self.extra.get("ns", 0))
+
+
+# Threads that tokenize a search's works ahead of the caller, which
+# tokenizes too.  More add no speed on an 8-core H100 host: the wrapper
+# around the GIL-free native scan holds the interpreter lock, so wider
+# pools only slowed the caller's packing and submits (PERF.md section 6).
+TOKENIZE_HELPERS = 2
+
+
+def tokenize_tasks(raw: Dict[str, str], batch_queries: int, threads: int) -> List[List[str]]:
+    """The raw works' ids in sorted order, cut into runs of consecutive
+    works: a run closes at the work that brings its text to
+    ``batch_queries // threads`` characters.  A token takes at least one
+    character, so a batch of ``batch_queries`` tokens spans ``threads``
+    runs or more, one for each thread that tokenizes."""
+    budget = max(1, batch_queries // threads)
+    tasks: List[List[str]] = []
+    run: List[str] = []
+    size = 0
+    for w in sorted(raw):
+        run.append(w)
+        size += len(raw[w])
+        if size >= budget:
+            tasks.append(run)
+            run, size = [], 0
+    if run:
+        tasks.append(run)
+    return tasks
 
 
 def _next_pow2(n: int, floor: int) -> int:
@@ -754,44 +782,66 @@ class SearchEngine:
 
     def _work_stream(
         self, raw: Dict[str, str], tokenized: Dict[str, Tokenized],
-        chunk: int = 1024,
     ) -> Iterable[Tuple[str, Tokenized]]:
-        """All works in sorted id order; raw text tokenizes on worker
-        threads a few chunks ahead and lands in ``tokenized``."""
+        """All works in sorted id order; raw text tokenizes in that order
+        and lands in ``tokenized``, each work yielded as soon as it and
+        every raw work before it are done, so the first batch waits only
+        for its own works."""
         import heapq
 
         pre = iter(sorted(tokenized.items()))
         if not raw:
             yield from pre
             return
+        yield from heapq.merge(pre, self._tokenized_in_order(raw, tokenized))
 
-        def tokenized_chunks():
-            from collections import deque
-            from concurrent.futures import ThreadPoolExecutor
+    def _tokenized_in_order(
+        self, raw: Dict[str, str], tokenized: Dict[str, Tokenized],
+    ) -> Iterable[Tuple[str, Tokenized]]:
+        """The raw works tokenized, in sorted id order, in runs of
+        ``tokenize_tasks``.
 
-            ids = sorted(raw)
-            spans = [ids[i : i + chunk] for i in range(0, len(ids), chunk)]
-            # 3 chunks in flight on 2 workers; tokenize_many fans each
-            # chunk over its own GIL-free thread pool
-            with ThreadPoolExecutor(max_workers=2) as ex:
-                pending = deque(
-                    ex.submit(tokenize_many, {w: raw[w] for w in sp})
-                    for sp in spans[:3]
-                )
-                nxt = 3
-                while pending:
-                    with self._trace.host("host.tokenize_wait", "s_tokenize_wait"):
-                        done = pending.popleft().result()
-                    if nxt < len(spans):
-                        pending.append(ex.submit(
-                            tokenize_many,
-                            {w: raw[w] for w in spans[nxt]},
-                        ))
-                        nxt += 1
-                    tokenized.update(done)
-                    yield from sorted(done.items())
+        Every run but the first goes at once, in order, to a pool of
+        ``TOKENIZE_HELPERS`` threads, whose FIFO queue keeps them on the
+        earliest runs not yet started.  The caller tokenizes the first
+        run, and each later run no helper has started (it cancels the
+        run's future), rather than wait for it.  A run the caller
+        tokenizes or waits for counts in ``tokenize_waits`` and is
+        spanned by ``host.tokenize_wait``."""
+        from concurrent.futures import ThreadPoolExecutor
 
-        yield from heapq.merge(pre, tokenized_chunks())
+        tasks = tokenize_tasks(raw, self.cfg.search.batch_queries, TOKENIZE_HELPERS + 1)
+        trace = self._trace
+
+        def run(ids):
+            return [fast_tokenize(raw[w]) for w in ids]
+
+        def landed(ids, fut):
+            # the run tokenized here (fut None) or by its helper
+            if fut is not None and fut.done():
+                toks = fut.result()
+            else:
+                trace.add("tokenize_waits", 1)
+                with trace.host("host.tokenize_wait", "s_tokenize_wait"):
+                    toks = run(ids) if fut is None else fut.result()
+            for w, tk in zip(ids, toks):
+                tokenized[w] = tk
+                yield w, tk
+
+        # the Python tokenizer holds the interpreter lock throughout, and
+        # a single run (a served request's work) needs no helper
+        helpers = min(TOKENIZE_HELPERS, len(tasks) - 1) if get_lib() is not None else 0
+        if not helpers:
+            for ids in tasks:
+                yield from landed(ids, None)
+            return
+        ex = ThreadPoolExecutor(max_workers=helpers)
+        try:
+            futures = [None] + [ex.submit(run, ids) for ids in tasks[1:]]
+            for ids, fut in zip(tasks, futures):
+                yield from landed(ids, None if fut is None or fut.cancel() else fut)
+        finally:
+            ex.shutdown(cancel_futures=True)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """A uint32 or int32 host array on the device as int32.  From

@@ -8,7 +8,8 @@ the caller's thread for each of its timers (``host.batchgen`` and in it
 part of its stage 1.  Off, it makes no ``record_function`` at all.  The
 K2 row counters: on the exact path each batch's work shingles, on the
 hybrid (counted on the device while tracing) the at-risk rows of each
-batch's first launch that lie inside one work.  The worlds are small:
+batch's first launch that lie inside one work; ``tokenize_waits``, the
+tokenizer tasks the caller waited for.  The worlds are small:
 an exact search in three batches, and a hybrid with buckets of cap 2
 whose at-risk rows overflow the first risk budget, so K2 reruns.
 """
@@ -25,7 +26,12 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from fandom_search_tpu_torch.config import BucketedConfig, PipelineConfig
 from fandom_search_tpu_torch.data.script_parser import parse_script
 from fandom_search_tpu_torch.ops.bucketed import attach_bucketed_prefilter
-from fandom_search_tpu_torch.search.engine import EngineStats, SearchEngine
+from fandom_search_tpu_torch.search.engine import (
+    TOKENIZE_HELPERS,
+    EngineStats,
+    SearchEngine,
+    tokenize_tasks,
+)
 from fandom_search_tpu_torch.search.index import build_script_index
 from fandom_search_tpu_torch.utils import profiling
 from fandom_search_tpu_torch.utils.profiling import Tracer
@@ -140,6 +146,14 @@ def test_batchgen_holds_tokenize_wait_and_pack(searched):
         assert {"s_batchgen", "s_pull", "s_host", "s_tokenize_wait", "s_pack"} <= set(x)
         assert 0 < x["s_tokenize_wait"] + x["s_pack"] <= x["s_batchgen"]
         assert st.seconds_device_topk > 0 and st.seconds_host >= x["s_host"] > 0
+
+
+def test_tokenize_waits_counts_the_tasks_waited_for(searched):
+    """The in-order tokenizer results the caller had to wait for: the
+    first task at least (the caller tokenizes it), every task at most."""
+    tasks = tokenize_tasks(searched["works"], _cfg().search.batch_queries, TOKENIZE_HELPERS + 1)
+    for st in (searched["stats"], searched["t_stats"]):
+        assert 1 <= st.extra["tokenize_waits"] <= len(tasks)
 
 
 def test_k2_rows(searched):
